@@ -1,0 +1,81 @@
+"""Command-line interface of the port: dense 1:N matching.
+
+    python -m msu_latentafis_tpu_torch.cli match -l LATENT.dat \
+        -g GALLERY_DIR -c CODEBOOK.dat -s SCORE_DIR [--device cpu]
+
+Scores one final latent ``.dat`` against every rolled ``.dat`` in the
+gallery directory with the exact dense path (the reference's One2List
+mode, matching/main.cpp:35-87), writes ``SCORE_DIR/<latent>.csv`` (the
+ranked top-24) and prints the top-24 table. The screen-then-rerank
+serving mode, ``-ldir`` batches and correspondence files are not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import sys
+import time
+from typing import List, Optional
+
+from .matcher.engine import MatchEngine, write_rank_csv
+from .templates import (pack_gallery, pack_latent, read_codebook,
+                        read_final_template)
+
+
+def load_gallery_dir(engine: MatchEngine, gallery_dir: str):
+    files = sorted(glob.glob(os.path.join(gallery_dir, "*.dat")))
+    if not files:
+        raise FileNotFoundError(f"no .dat files in {gallery_dir}")
+    names = [os.path.splitext(os.path.basename(f))[0] for f in files]
+    templates = [read_final_template(f, kind="rolled") for f in files]
+    return engine.load_gallery(pack_gallery(templates, engine.codebook,
+                                            names=names))
+
+
+def cmd_match(args) -> int:
+    os.makedirs(args.scores, exist_ok=True)
+    engine = MatchEngine(read_codebook(args.codebook), device=args.device)
+    t0 = time.perf_counter()
+    gallery = load_gallery_dir(engine, args.gallery)
+    print(f"Gallery size: {gallery.n_real} "
+          f"(loaded in {time.perf_counter() - t0:.2f}s)")
+
+    name = os.path.splitext(os.path.basename(args.latent))[0]
+    out = os.path.join(args.scores, name + ".csv")
+    t = read_final_template(args.latent, kind="latent")
+    if not t.minu_template and not t.texture_template:
+        with open(out, "w") as f:
+            f.write("0\n")
+        return 0
+    t0 = time.perf_counter()
+    result = engine.one_to_list(pack_latent(t, quantize_tex_xy=False),
+                                gallery)
+    dt = (time.perf_counter() - t0) * 1000
+    print(f"{name}: matched {gallery.n_real} in {dt:.1f} ms")
+    write_rank_csv(out, result)
+    print("Rank     Filename      Score")
+    for r, (n, s) in enumerate(result.ranked(24), 1):
+        print(f"{r:<8} {n:<12} {s:.3f}")
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(prog="afis-torch",
+                                description="latent AFIS on PyTorch/CUDA")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    pm = sub.add_parser("match", help="dense 1:N match of one latent")
+    pm.add_argument("-l", "--latent", required=True, help="latent .dat")
+    pm.add_argument("-g", "--gallery", required=True,
+                    help="directory of rolled .dat files")
+    pm.add_argument("-c", "--codebook", required=True, help="PQ codebook")
+    pm.add_argument("-s", "--scores", required=True, help="score directory")
+    pm.add_argument("--device", default="cuda",
+                    help="torch device (default cuda)")
+    pm.set_defaults(fn=cmd_match)
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,108 @@
+"""Build and load the matcher's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call into a shared library
+with a plain C interface, loaded with ``ctypes``. No PyTorch headers, no
+``ninja`` and no ``torch.utils.cpp_extension``: a source that includes
+``torch/extension.h`` takes minutes to compile, this takes seconds.
+
+The library is cached under ``_build/`` (listed in ``.gitignore``) by a
+hash of the sources and the command. A build writes to a temporary name
+and renames it into place, so an interrupted build leaves no lock or
+half-written library behind. ``--fmad=false`` keeps every product and sum
+a separate rounding, as in the plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+BUILD_TIMEOUT_S = 180
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C launcher name -> argument types; every launcher returns cudaError_t.
+SIGNATURES = {
+    "afis_adc_rowmax": [_P] * 7 + [_I] * 5 + [_P],
+    "afis_texture_match": [_P] * 6 + [_I] * 7 + [_P],
+    "afis_minutiae_match": [_P] * 7 + [_I] * 9 + [_P],
+    "afis_error_string": [_I],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return cand
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libafis_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the cached library exists; returns it.
+    The compiler's resource report (``-Xptxas=-v``) goes to ``<lib>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sources()]]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=BUILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s") from e
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """Build (once per source hash) and load the library; declares every
+    launcher's argument types so pointers are never cut to 32 bits."""
+    lib = ctypes.CDLL(str(build()))
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_char_p if name == "afis_error_string" \
+            else ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error (a refused launch is
+    never reported by a later synchronize)."""
+    if err != 0:
+        msg = load().afis_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,328 @@
+"""The dense matcher's three kernels: wrappers and plain versions.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs, and then either runs the plain PyTorch version (the tensors lie
+on the CPU) or launches the CUDA kernel on the current stream (they lie on
+a CUDA device) and raises if the launch was refused. There is no fallback
+from one to the other. ``<wrapper>.launches`` counts kernel launches.
+
+The plain versions are the kernels' specification: the same arithmetic in
+the same order, so a kernel and its plain version agree bit for bit on the
+card (``chip_smoke.py`` holds them to rtol 1e-5 / atol 1e-4).
+
+| wrapper | TPU kernel it replaces (JAX package, matcher/pallas_kernels.py) |
+| --- | --- |
+| adc_rowmax | fused_adc_rowmax :1489 (_adc_rowmax_kernel :29) |
+| texture_match | fused_texture_match :1031 (_make_texture_match_kernel :939) |
+| minutiae_match | fused_minutiae_match :878 (_make_minutiae_match_kernel :682) |
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..graph_filter import filter_correspondences
+from ..minutiae_match import (SENT as MINU_SENT, minutiae_similarity,
+                              mutual_normalize, row_candidates)
+from . import _build
+
+NEG_BIG = -1e30          # invalid rolled columns of the ADC similarity
+TEX_SENT = -1e4          # invalid latent rows of the texture selection
+BISECT_ITERS = 26
+MAX_K = 256              # filter slots a thread block holds (8 mask words)
+
+KERNELS = ("adc_rowmax", "texture_match", "minutiae_match")
+
+
+def launch_counts() -> dict:
+    return {k: globals()[k].launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        globals()[k].launches = 0
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if device.type == "cuda" and not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _is_cuda(device: torch.device) -> bool:
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return True
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# adc_rowmax
+# ---------------------------------------------------------------------------
+
+def adc_rowmax_plain(x, lsq, dec, rsq, rvalid) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """Row max / first argmax of simi = 2 x.dec + (6 - |x|^2 - |c|^2), with
+    invalid rolled columns pushed down by (v - 1) * 1e30."""
+    D = x.shape[-1]
+    acc = torch.zeros((x.shape[0], dec.shape[0], x.shape[1], dec.shape[1]),
+                      dtype=torch.float32, device=x.device)
+    for d in range(D):
+        acc = acc + x[:, None, :, None, d] * dec[None, :, None, :, d]
+    simi = 2.0 * acc + ((6.0 - lsq)[:, None, :, None] - rsq[None, :, None, :])
+    simi = simi + (rvalid[None, :, None, :] - 1.0) * -NEG_BIG
+    best = simi.max(dim=-1).values
+    iota = torch.arange(simi.shape[-1], device=x.device, dtype=torch.int32)
+    bestj = torch.where(simi == best[..., None], iota,
+                        simi.shape[-1]).min(dim=-1).values
+    return best, bestj.to(torch.int32)
+
+
+def adc_rowmax(x: torch.Tensor, lsq: torch.Tensor, dec: torch.Tensor,
+               rsq: torch.Tensor, rvalid: torch.Tensor):
+    """ADC texture similarity row maxima without materializing it.
+
+    x [NL, Lt, D] latent texture descriptors, lsq [NL, Lt] their squared
+    norms; dec [B, Rt, D] decoded gallery descriptors, rsq [B, Rt], rvalid
+    [B, Rt] f32 0/1. Returns best [NL, B, Lt] f32 and bestj i32 (first
+    index on ties); rows with no valid rolled column come back <= -1e30.
+    """
+    NL, Lt, D = x.shape
+    B, Rt, _ = dec.shape
+    dev = x.device
+    f32 = torch.float32
+    _check("x", x, (NL, Lt, D), f32, dev)
+    _check("lsq", lsq, (NL, Lt), f32, dev)
+    _check("dec", dec, (B, Rt, D), f32, dev)
+    _check("rsq", rsq, (B, Rt), f32, dev)
+    _check("rvalid", rvalid, (B, Rt), f32, dev)
+    if not _is_cuda(dev):
+        return adc_rowmax_plain(x, lsq, dec, rsq, rvalid)
+    best = torch.empty((NL, B, Lt), dtype=f32, device=dev)
+    bestj = torch.empty((NL, B, Lt), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    err = lib.afis_adc_rowmax(
+        *(t.data_ptr() for t in (x, lsq, dec, rsq, rvalid, best, bestj)),
+        NL, Lt, B, Rt, D, _stream(dev))
+    _build.check(err, "adc_rowmax")
+    adc_rowmax.launches += 1
+    return best, bestj
+
+
+adc_rowmax.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# threshold selection shared by the two filter kernels
+# ---------------------------------------------------------------------------
+
+def select_slots(cand: torch.Tensor, K: int, lo: torch.Tensor,
+                 hi: torch.Tensor, band_key: Optional[torch.Tensor] = None):
+    """Top-K of each row of ``cand`` [N, C] by threshold bisection.
+
+    BISECT_ITERS steps of mid = 0.5 (lo + hi), keeping count(> lo) > K >=
+    count(> hi). Values above hi take the first slots in index order, then
+    the (lo, hi] band fills the remaining slots in ascending ``band_key``
+    order (index order when None; keys must be distinct within a row).
+    Returns (sel [N, C] bool, slot [N, C] int64, the output position).
+    """
+    for _ in range(BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        big = (cand > mid[:, None]).sum(dim=1) > K
+        lo, hi = torch.where(big, mid, lo), torch.where(big, hi, mid)
+    mask_hi = cand > hi[:, None]
+    mask_tie = (cand > lo[:, None]) & ~mask_hi
+    n_hi = mask_hi.sum(dim=1, keepdim=True)
+    rank_hi = torch.cumsum(mask_hi, dim=1) - mask_hi.long()
+    if band_key is None:
+        rank_tie = torch.cumsum(mask_tie, dim=1) - mask_tie.long()
+    else:
+        big_key = band_key.max() + 1
+        order = torch.argsort(torch.where(mask_tie, band_key, big_key), dim=1)
+        rank_tie = torch.empty_like(order)
+        rank_tie.scatter_(1, order, torch.arange(
+            cand.shape[1], device=cand.device).expand_as(order).contiguous())
+    sel_tie = mask_tie & (rank_tie < K - n_hi)
+    slot = torch.where(mask_hi, rank_hi, n_hi + rank_tie)
+    return mask_hi | sel_tie, slot
+
+
+def _scatter_slots(sel: torch.Tensor, slot: torch.Tensor, K: int, *values):
+    """Move the selected elements of each [N, C] value row to their slots
+    [N, K]; empty slots hold 0. Also returns the slot validity mask."""
+    N = sel.shape[0]
+    n_idx = torch.arange(N, device=sel.device)[:, None].expand_as(sel)
+    rows, cols = n_idx[sel], slot[sel]
+    outs = []
+    for v in values:
+        o = torch.zeros((N, K), dtype=v.dtype, device=v.device)
+        o[rows, cols] = v[sel]
+        outs.append(o)
+    vf = torch.zeros((N, K), dtype=torch.bool, device=sel.device)
+    vf[rows, cols] = True
+    return outs, vf
+
+
+# ---------------------------------------------------------------------------
+# texture_match
+# ---------------------------------------------------------------------------
+
+def texture_match_plain(best, bestj, lvalid, lpack, rpack, top_n=200,
+                        lookup=True, dist_iters=3,
+                        stats: Optional[dict] = None) -> torch.Tensor:
+    """Top-K rows of the ADC maxima per (latent, entry) and the filter."""
+    NL, B, Lt = best.shape
+    K = min(top_n, Lt)
+    N = NL * B
+    bestm = torch.where(lvalid[:, None, :] > 0.5, best,
+                        torch.full_like(best, TEX_SENT)).reshape(N, Lt)
+    minv = torch.where(bestm > TEX_SENT + 1.0, bestm,
+                       torch.full_like(bestm, 1e30)).min(dim=1).values
+    lo = torch.clamp(minv - 1.0, min=TEX_SENT)
+    hi = bestm.max(dim=1).values + 1.0
+    sel, slot = select_slots(bestm, K, lo, hi)
+    rows = torch.arange(Lt, device=best.device).expand(N, Lt)
+    (val, li, ri), vf = _scatter_slots(sel, slot, K, bestm, rows,
+                                       bestj.reshape(N, Lt).long())
+    # spec candidate-list order (matcher.cpp:736-749): latent-row order
+    # (the slot order) when <= K rows are valid, value-sorted when more
+    usef = (lvalid.sum(dim=1) > float(K)).float()
+    tie = val * usef.repeat_interleave(B)[:, None]
+    n_of = torch.arange(NL, device=best.device).repeat_interleave(B)
+    b_of = torch.arange(B, device=best.device).repeat(NL)
+    lp = lpack[n_of[:, None], li]
+    rp = rpack[b_of[:, None], ri]
+    return filter_correspondences(val, li, ri, lp, rp, vf, lookup,
+                                  dist_iters, (tie,), stats).reshape(NL, B)
+
+
+def texture_match(best: torch.Tensor, bestj: torch.Tensor,
+                  lvalid: torch.Tensor, lpack: torch.Tensor,
+                  rpack: torch.Tensor, top_n: int = 200, lookup: bool = True,
+                  dist_iters: int = 3) -> torch.Tensor:
+    """Texture score [NL, B] from the ADC row maxima.
+
+    best/bestj [NL, B, Lt] from ``adc_rowmax``; lvalid [NL, Lt] f32;
+    lpack [NL, Lt, 4] / rpack [B, R, 4] = (x, y, cos ori, sin ori) with
+    quantized (x-24)/16 coordinates when ``lookup``. K = min(top_n, Lt)
+    slots by the 26-step bisect, then the graph filter with tie key
+    value * [n_valid > K].
+    """
+    NL, B, Lt = best.shape
+    R = rpack.shape[1]
+    K = min(top_n, Lt)
+    dev = best.device
+    f32 = torch.float32
+    _check("best", best, (NL, B, Lt), f32, dev)
+    _check("bestj", bestj, (NL, B, Lt), torch.int32, dev)
+    _check("lvalid", lvalid, (NL, Lt), f32, dev)
+    _check("lpack", lpack, (NL, Lt, 4), f32, dev)
+    _check("rpack", rpack, (B, R, 4), f32, dev)
+    if not _is_cuda(dev):
+        return texture_match_plain(best, bestj, lvalid, lpack, rpack, top_n,
+                                   lookup, dist_iters)
+    if K > MAX_K:
+        raise ValueError(f"texture_match: K={K} > {MAX_K}")
+    out = torch.empty((NL, B), dtype=f32, device=dev)
+    lib = _build.load()
+    err = lib.afis_texture_match(
+        *(t.data_ptr() for t in (best, bestj, lvalid, lpack, rpack, out)),
+        NL, B, Lt, R, K, int(lookup), dist_iters, _stream(dev))
+    _build.check(err, "texture_match")
+    texture_match.launches += 1
+    return out
+
+
+texture_match.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# minutiae_match
+# ---------------------------------------------------------------------------
+
+def minutiae_match_plain(ldes, lvalid, rdes, rvalid, lpack, rpack,
+                         top_n=120, row_cap=8, lookup=False, dist_iters=5,
+                         stats: Optional[dict] = None) -> torch.Tensor:
+    """Whole minutiae-template match [NT, B]: similarity, mutual
+    normalization, row_cap candidates per latent row, bisect top-K over
+    the [row_cap, P] table with the (lo, hi] band filled in flat-index
+    order, then the filter with tie keys (normalized value, -flat index)."""
+    NT, P, _ = ldes.shape
+    B, R, _ = rdes.shape
+    K = min(top_n, P * R)
+    N = NT * B
+    simi = minutiae_similarity(ldes, lvalid, rdes, rvalid)     # [NT,B,P,R]
+    pair = (lvalid[:, None, :, None] > 0.5) & (rvalid[None, :, None, :] > 0.5)
+    normm = torch.where(pair, mutual_normalize(simi),
+                        torch.full_like(simi, MINU_SENT))
+    cv, cr, cs = row_candidates(normm, simi, row_cap)           # [.., cap, P]
+    C = row_cap * P
+    cv, cr, cs = (a.reshape(N, C) for a in (cv, cr, cs))
+    lo = torch.full((N,), -1.0, device=ldes.device)
+    hi = torch.full((N,), 1.0000001, device=ldes.device)
+    prow = torch.arange(P, device=ldes.device).repeat(row_cap).expand(N, C)
+    # the band fills in the spec's candidate order, flat index p * R + r
+    sel, slot = select_slots(cv, K, lo, hi, band_key=prow * R + cr)
+    (val, normv, li, ri), vf = _scatter_slots(sel, slot, K, cs, cv, prow, cr)
+    neg_flat = -(li.float() * float(R) + ri.float())
+    t_of = torch.arange(NT, device=ldes.device).repeat_interleave(B)
+    b_of = torch.arange(B, device=ldes.device).repeat(NT)
+    lp = lpack[t_of[:, None], li]
+    rp = rpack[b_of[:, None], ri]
+    return filter_correspondences(val, li, ri, lp, rp, vf, lookup,
+                                  dist_iters, (normv, neg_flat),
+                                  stats).reshape(NT, B)
+
+
+def minutiae_match(ldes: torch.Tensor, lvalid: torch.Tensor,
+                   rdes: torch.Tensor, rvalid: torch.Tensor,
+                   lpack: torch.Tensor, rpack: torch.Tensor,
+                   top_n: int = 120, row_cap: int = 8, lookup: bool = False,
+                   dist_iters: int = 5) -> torch.Tensor:
+    """Minutiae-template scores [NT, B].
+
+    ldes [NT, P, D], lvalid [NT, P] f32; rdes [B, R, D], rvalid [B, R]
+    f32; lpack [NT, P, 4] / rpack [B, R, 4] coordinate packs. ``row_cap``
+    candidates per latent row feed the top-K (K = min(top_n, P*R)).
+    """
+    NT, P, D = ldes.shape
+    B, R, _ = rdes.shape
+    K = min(top_n, P * R)
+    dev = ldes.device
+    f32 = torch.float32
+    _check("ldes", ldes, (NT, P, D), f32, dev)
+    _check("lvalid", lvalid, (NT, P), f32, dev)
+    _check("rdes", rdes, (B, R, D), f32, dev)
+    _check("rvalid", rvalid, (B, R), f32, dev)
+    _check("lpack", lpack, (NT, P, 4), f32, dev)
+    _check("rpack", rpack, (B, R, 4), f32, dev)
+    if row_cap < 1:
+        raise ValueError("row_cap must be >= 1")
+    if not _is_cuda(dev):
+        return minutiae_match_plain(ldes, lvalid, rdes, rvalid, lpack, rpack,
+                                    top_n, row_cap, lookup, dist_iters)
+    if K > MAX_K:
+        raise ValueError(f"minutiae_match: K={K} > {MAX_K}")
+    out = torch.empty((NT, B), dtype=f32, device=dev)
+    lib = _build.load()
+    err = lib.afis_minutiae_match(
+        *(t.data_ptr() for t in (ldes, lvalid, rdes, rvalid, lpack, rpack,
+                                 out)),
+        NT, P, B, R, D, K, row_cap, int(lookup), dist_iters, _stream(dev))
+    _build.check(err, "minutiae_match")
+    minutiae_match.launches += 1
+    return out
+
+
+minutiae_match.launches = 0

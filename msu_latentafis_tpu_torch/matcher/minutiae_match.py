@@ -1,0 +1,84 @@
+"""Minutiae-template matching (uncompressed descriptors), plain PyTorch.
+
+Reference semantics (matcher.cpp:420-516): descriptor similarity, clamp
+at zero, mutual normalization s / (rowsum + colsum - s), top-120 candidate
+correspondences by normalized similarity carrying the raw similarity as
+weight, then the two-stage graph filter. Candidate selection follows the
+``fused_minutiae_match`` kernel: ``row_cap`` best candidates per latent
+row, then one threshold bisect over the [row_cap, P] candidate table. It
+is the exact top-K whenever no latent row holds more than ``row_cap`` of
+it (``row_cap = R`` is always exact).
+
+Sums run in index order (see ``graph_filter.seq_sum``) so that the CUDA
+kernel reproduces these functions bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+from .graph_filter import seq_sum
+
+SENT = -3.0          # below any normalized similarity; marks invalid pairs
+
+
+def minutiae_similarity(lat_des: torch.Tensor, lat_validf: torch.Tensor,
+                        rol_des: torch.Tensor,
+                        rol_validf: torch.Tensor) -> torch.Tensor:
+    """relu(ldes . rdes) * valid -> [NT, B, P, R].
+
+    ``lat_des`` [NT, P, D], ``rol_des`` [B, R, D]; validity as f32 0/1.
+    The D-long dot products run in index order, one rounding per product
+    and per sum.
+    """
+    D = lat_des.shape[-1]
+    acc = torch.zeros((lat_des.shape[0], rol_des.shape[0], lat_des.shape[1],
+                       rol_des.shape[1]), dtype=torch.float32,
+                      device=lat_des.device)
+    for d in range(D):
+        acc = acc + lat_des[:, None, :, None, d] * rol_des[None, :, None, :, d]
+    pairv = lat_validf[:, None, :, None] * rol_validf[None, :, None, :]
+    return torch.clamp(acc, min=0.0) * pairv
+
+
+def mutual_normalize(simi: torch.Tensor) -> torch.Tensor:
+    """simi / (rowsum + colsum - simi + 1e-6) over the last two axes."""
+    row = seq_sum(simi, dim=-1)
+    col = seq_sum(simi, dim=-2)
+    return simi / (row[..., :, None] + col[..., None, :] - simi + 1e-6)
+
+
+def row_candidates(normm: torch.Tensor, simi: torch.Tensor, row_cap: int):
+    """``row_cap`` rounds of per-row max extraction (first index on ties).
+
+    Returns (value, column, similarity), each [..., row_cap, P]: the
+    candidate table in extraction-round-major order.
+    """
+    R = normm.shape[-1]
+    iota = torch.arange(R, device=normm.device)
+    normm = normm.clone()
+    cv, cr, cs = [], [], []
+    for _ in range(row_cap):
+        m = normm.max(dim=-1).values
+        am = torch.where(normm == m[..., None], iota, R).min(dim=-1).values
+        cv.append(m)
+        cr.append(am)
+        cs.append(torch.gather(simi, -1, am[..., None])[..., 0])
+        normm.scatter_(-1, am[..., None], SENT)
+    return (torch.stack(cv, dim=-2), torch.stack(cr, dim=-2),
+            torch.stack(cs, dim=-2))
+
+
+def minutiae_match_single(lat_des, lat_xy, lat_ori, lat_valid, rol_des,
+                          rol_xy, rol_ori, rol_valid, top_n: int = 120,
+                          row_cap: int = 8) -> torch.Tensor:
+    """Score one latent minutiae template [P, ...] against one rolled
+    template [R, ...] (``*_valid`` bool); returns a 0-d f32 tensor."""
+    from .kernels.ops import minutiae_match_plain
+
+    def pack(xy, ori):
+        return torch.stack([xy[:, 0], xy[:, 1], torch.cos(ori),
+                            torch.sin(ori)], dim=1)[None]
+    return minutiae_match_plain(
+        lat_des[None], lat_valid.float()[None], rol_des[None],
+        rol_valid.float()[None], pack(lat_xy, lat_ori),
+        pack(rol_xy, rol_ori), top_n=top_n, row_cap=row_cap)[0, 0]
