@@ -39,6 +39,17 @@ def seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
+def seq_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """acc[m, n, i, j] = sum_d a[m, i, d] * b[n, j, d], the D-long dots in
+    index order with one rounding per product and per sum (the kernels'
+    order)."""
+    acc = torch.zeros((a.shape[0], b.shape[0], a.shape[1], b.shape[1]),
+                      dtype=torch.float32, device=a.device)
+    for d in range(a.shape[-1]):
+        acc = acc + a[:, None, :, None, d] * b[None, :, None, :, d]
+    return acc
+
+
 def _pairdiff(a: torch.Tensor) -> torch.Tensor:
     return a[:, :, None] - a[:, None, :]
 

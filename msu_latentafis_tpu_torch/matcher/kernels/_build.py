@@ -1,13 +1,15 @@
 """Build and load the matcher's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call into a shared library
-with a plain C interface, loaded with ``ctypes``. No PyTorch headers, no
-``ninja`` and no ``torch.utils.cpp_extension``: a source that includes
-``torch/extension.h`` takes minutes to compile, this takes seconds.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc -c`` process, all started
+together, so the build takes as long as the slowest source; one more
+``nvcc`` links the objects into a shared library with a plain C
+interface, loaded with ``ctypes``. No PyTorch headers, no ``ninja`` and
+no ``torch.utils.cpp_extension``: a source that includes
+``torch/extension.h`` takes minutes to compile, these take seconds.
 
 The library is cached under ``_build/`` (listed in ``.gitignore``) by a
-hash of the sources and the command. A build writes to a temporary name
-and renames it into place, so an interrupted build leaves no lock or
+hash of the sources and the flags. A build writes to temporary names and
+renames the library into place, so an interrupted build leaves no lock or
 half-written library behind. ``--fmad=false`` keeps every product and sum
 a separate rounding, as in the plain PyTorch versions.
 """
@@ -19,19 +21,23 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 BUILD_TIMEOUT_S = 180
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C launcher name -> argument types; every launcher returns cudaError_t.
 SIGNATURES = {
     "afis_adc_rowmax": [_P] * 7 + [_I] * 5 + [_P],
+    "afis_adc_rowmax_codes": [_P] * 8 + [_I] * 7 + [_P],
+    "afis_adc_screen": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "afis_adc_screen_codes": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "afis_minu_screen": [_P] * 5 + [_I] * 5 + [_P],
     "afis_texture_match": [_P] * 6 + [_I] * 7 + [_P],
     "afis_minutiae_match": [_P] * 7 + [_I] * 9 + [_P],
     "afis_error_string": [_I],
@@ -63,27 +69,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libafis_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc(*args: str) -> subprocess.CompletedProcess:
+    """One nvcc process; a timeout kills it and raises."""
+    try:
+        return subprocess.run([nvcc_path(), *args], capture_output=True,
+                              text=True, timeout=BUILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s") from e
+
+
 def build() -> Path:
     """Compile the kernels unless the cached library exists; returns it.
-    The compiler's resource report (``-Xptxas=-v``) goes to ``<lib>.log``."""
+    The compilers' resource reports (``-Xptxas=-v``) go to ``<lib>.log``.
+    Every process started here has ended when this returns or raises."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources()]]
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sources()
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s") from e
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            runs = list(pool.map(
+                lambda so: _nvcc(*NVCC_FLAGS, "-c", "-o", str(so[1]),
+                                 str(so[0])), zip(srcs, objs)))
+        out.with_suffix(".log").write_text("".join(
+            f"== {s.name}\n{r.stdout}{r.stderr}" for s, r in zip(srcs, runs)))
+        failed = [f"{s.name} ({r.returncode}):\n{r.stderr}"
+                  for s, r in zip(srcs, runs) if r.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = _nvcc("-shared", "-o", str(tmp), *map(str, objs))
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
     return out
 
 

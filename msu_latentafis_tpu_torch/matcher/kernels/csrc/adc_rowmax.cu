@@ -1,49 +1,46 @@
 // ADC texture similarity row maxima, without materializing the similarity.
 //
 // Replaces the JAX package's pallas_kernels.py fused_adc_rowmax (:1489) /
-// _adc_rowmax_kernel (:29). For every latent n, gallery entry b and latent
-// row i:
+// _adc_rowmax_kernel (:29) and, over uint8 PQ codes, fused_adc_rowmax_codes
+// (:1434) / _adc_rowmax_codes_kernel (:1387). For every latent n, gallery
+// entry b and latent row i:
 //   simi[i, j] = 2 x_i . dec_j + ((6 - |x_i|^2) - |dec_j|^2) + (v_j - 1) 1e30
 //   best[n, b, i] = max_j simi[i, j], bestj = the first j reaching it.
 // The masking expression is kept exactly: a row whose rolled side is all
 // invalid becomes all -1e30 and its argmax is 0.
 //
 // Bound: operations, 2 Lt Rt D flops per (latent, entry) pair (38.5 MFLOP at
-// Lt = Rt = 448, D = 96) against ~0.3 MB read, in f32 (no TF32: this is the
-// parity mode). Design: a block owns 64 latent rows of one (n, b) and walks
-// the Rt axis in 64-column tiles; both tiles sit in shared memory with a
-// padded row stride (D + 1) and every thread keeps a 4 x 4 register tile.
-// The D-long dot products run in index order with one rounding per product
-// and per sum (built with --fmad=false), as in the plain version. Tiles
-// merge in column order with a strict >, threads merge with the smaller
-// index on equal values, so ties resolve to the first index. Two 64 x 97 f32
-// tiles are 49.7 KB, above the 48 KB default: the launcher opts in.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Lt = Rt = 448, D = 96) against ~0.3 MB read (7 KB of codes), in f32 (no
+// TF32: this is the parity mode). Design: a block owns 64 latent rows of one
+// (n, b) and walks the Rt axis in 64-column tiles (adc_tile.cuh); the codes
+// variant decodes each column tile from the codebook in shared memory (a
+// lookup, not the TPU's one-hot matmul). Tiles merge in column order with a
+// strict >, threads merge with the smaller index on equal values, so ties
+// resolve to the first index. Two 64 x 97 f32 tiles are 49.7 KB and the
+// 16 x 256 x 6 codebook 98.3 KB more, above the 48 KB default: the launcher
+// opts in. Both variants run the same body, so on the same entry they give
+// the same bits.
+#include "adc_tile.cuh"
 
 namespace {
 
-constexpr int kTile = 64;      // latent rows and rolled columns per tile
-constexpr int kThreadsAdc = 256;
+using namespace afis_adc;
 
-__global__ void __launch_bounds__(kThreadsAdc) adc_rowmax_kernel(
-    const float* __restrict__ x, const float* __restrict__ lsq,
-    const float* __restrict__ dec, const float* __restrict__ rsq,
-    const float* __restrict__ rvalid, float* __restrict__ best,
-    int* __restrict__ bestj, int Lt, int B, int Rt, int D) {
+template <class Cols>
+__global__ void __launch_bounds__(kThreads) adc_rowmax_kernel(
+    const float* __restrict__ x, const float* __restrict__ lsq, Cols cols,
+    const float* __restrict__ rsq, const float* __restrict__ rvalid,
+    float* __restrict__ best, int* __restrict__ bestj, int Lt, int B, int Rt,
+    int D) {
   extern __shared__ float sm[];
   const int DP = D + 1;
   float* xs = sm;                      // [kTile][DP] latent rows
   float* ds = sm + kTile * DP;         // [kTile][DP] rolled columns
+  cols.init(ds + kTile * DP);
   const int row0 = blockIdx.x * kTile, b = blockIdx.y, n = blockIdx.z;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
 
-  for (int idx = tid; idx < kTile * D; idx += blockDim.x) {
-    const int r = idx / D, d = idx - r * D;
-    xs[r * DP + d] = row0 + r < Lt
-        ? x[((size_t)n * Lt + row0 + r) * D + d] : 0.f;
-  }
+  load_rows(xs, x, n, row0, Lt, D);
   float t6[4], bv[4];
   int bi[4];
   for (int q = 0; q < 4; ++q) {
@@ -55,25 +52,10 @@ __global__ void __launch_bounds__(kThreadsAdc) adc_rowmax_kernel(
 
   for (int c0 = 0; c0 < Rt; c0 += kTile) {
     __syncthreads();
-    for (int idx = tid; idx < kTile * D; idx += blockDim.x) {
-      const int c = idx / D, d = idx - c * D;
-      ds[c * DP + d] = c0 + c < Rt
-          ? dec[((size_t)b * Rt + c0 + c) * D + d] : 0.f;
-    }
+    cols.load(ds, b, c0, Rt, D);
     __syncthreads();
     float acc[4][4];
-    for (int i = 0; i < 4; ++i)
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float xv[4], dv[4];
-      for (int q = 0; q < 4; ++q) {
-        xv[q] = xs[(tr * 4 + q) * DP + d];
-        dv[q] = ds[(tc * 4 + q) * DP + d];
-      }
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(xv[i], dv[j]));
-    }
+    tile_dots(xs, ds, D, tr, tc, acc);
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + tc * 4 + j;
       if (c >= Rt) break;
@@ -102,6 +84,25 @@ __global__ void __launch_bounds__(kThreadsAdc) adc_rowmax_kernel(
   }
 }
 
+template <class Cols>
+int launch(const float* x, const float* lsq, Cols cols, const float* rsq,
+           const float* rvalid, float* best, int* bestj, int NL, int Lt,
+           int B, int Rt, int D, void* stream) {
+  if (NL <= 0 || Lt <= 0 || B <= 0 || B > 65535 || NL > 65535 || Rt <= 0
+      || D <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      (2 * (size_t)kTile * (D + 1) + cols.smem_floats()) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      adc_rowmax_kernel<Cols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Lt + kTile - 1) / kTile, B, NL);
+  adc_rowmax_kernel<Cols><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      x, lsq, cols, rsq, rvalid, best, bestj, Lt, B, Rt, D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int afis_adc_rowmax(const float* x, const float* lsq,
@@ -109,17 +110,21 @@ extern "C" int afis_adc_rowmax(const float* x, const float* lsq,
                                const float* rvalid, float* best, int* bestj,
                                int NL, int Lt, int B, int Rt, int D,
                                void* stream) {
-  if (NL <= 0 || Lt <= 0 || B <= 0 || Rt <= 0 || D <= 0)
+  return launch(x, lsq, DecCols{dec}, rsq, rvalid, best, bestj, NL, Lt, B,
+                Rt, D, stream);
+}
+
+extern "C" int afis_adc_rowmax_codes(const float* x, const float* lsq,
+                                     const uint8_t* codes,
+                                     const float* codebook, const float* rsq,
+                                     const float* rvalid, float* best,
+                                     int* bestj, int NL, int Lt, int B,
+                                     int Rt, int S, int C, int sub_dim,
+                                     void* stream) {
+  if (S <= 0 || C <= 0 || C > 256 || sub_dim <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = 2 * (size_t)kTile * (D + 1) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      adc_rowmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Lt + kTile - 1) / kTile, B, NL);
-  adc_rowmax_kernel<<<grid, kThreadsAdc, bytes, (cudaStream_t)stream>>>(
-      x, lsq, dec, rsq, rvalid, best, bestj, Lt, B, Rt, D);
-  return (int)cudaGetLastError();
+  return launch(x, lsq, CodeCols{codes, codebook, S, C, sub_dim, nullptr},
+                rsq, rvalid, best, bestj, NL, Lt, B, Rt, S * sub_dim, stream);
 }
 
 extern "C" const char* afis_error_string(int err) {

@@ -1,0 +1,103 @@
+// Shared pieces of the four ADC kernels (adc_rowmax.cu, adc_screen.cu).
+//
+// A block holds kTile latent rows and kTile rolled columns in shared memory,
+// each row padded to D + 1 floats, and every one of its 256 threads keeps a
+// 4 x 4 register tile of dot products. The D-long dots run in index order
+// with one rounding per product and per sum (the library is built with
+// --fmad=false), as in the plain PyTorch versions.
+//
+// The rolled columns come from one of two loaders with the same interface:
+//   DecCols  - predecoded f32 descriptors dec [B, Rt, D];
+//   CodeCols - uint8 PQ codes [B, Rt, S] looked up in the codebook
+//              [S, C, sub_dim], which the block copies into shared memory
+//              once. Decoded values are exact codebook entries, so both
+//              loaders fill a tile with the same bits for the same entry.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace afis_adc {
+
+constexpr int kTile = 64;      // latent rows and rolled columns per tile
+constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+// Latent rows row0 .. row0 + kTile - 1 of latent n into xs [kTile][D + 1];
+// rows past Lt are zero.
+__device__ __forceinline__ void load_rows(float* xs, const float* x, int n,
+                                          int row0, int Lt, int D) {
+  const int DP = D + 1;
+  for (int idx = threadIdx.x; idx < kTile * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx - r * D;
+    xs[r * DP + d] = row0 + r < Lt
+        ? x[((size_t)n * Lt + row0 + r) * D + d] : 0.f;
+  }
+}
+
+struct DecCols {
+  const float* dec;            // [B, Rt, D]
+
+  static size_t smem_floats() { return 0; }
+  __device__ void init(float*) {}
+  // Columns c0 .. c0 + kTile - 1 of entry b into ds [kTile][D + 1].
+  __device__ void load(float* ds, int b, int c0, int Rt, int D) const {
+    const int DP = D + 1;
+    for (int idx = threadIdx.x; idx < kTile * D; idx += blockDim.x) {
+      const int c = idx / D, d = idx - c * D;
+      ds[c * DP + d] = c0 + c < Rt
+          ? dec[((size_t)b * Rt + c0 + c) * D + d] : 0.f;
+    }
+  }
+};
+
+struct CodeCols {
+  const uint8_t* codes;        // [B, Rt, S]
+  const float* codebook;       // [S, C, sub_dim] in device memory
+  int S, C, sub_dim;
+  const float* cb;             // the block's copy in shared memory
+
+  size_t smem_floats() const { return (size_t)S * C * sub_dim; }
+  // Copies the codebook into shared memory at sm; the caller synchronizes
+  // before the first load.
+  __device__ void init(float* sm) {
+    const int n = S * C * sub_dim;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) sm[i] = codebook[i];
+    cb = sm;
+  }
+  // Feature d = s * sub_dim + k of minutia c reads cb[s][codes[c][s]][k].
+  __device__ void load(float* ds, int b, int c0, int Rt, int D) const {
+    const int DP = D + 1;
+    for (int idx = threadIdx.x; idx < kTile * D; idx += blockDim.x) {
+      const int c = idx / D, d = idx - c * D;
+      float v = 0.f;
+      if (c0 + c < Rt) {
+        const int s = d / sub_dim, k = d - s * sub_dim;
+        const int code = codes[((size_t)b * Rt + c0 + c) * S + s];
+        v = cb[(s * C + code) * sub_dim + k];
+      }
+      ds[c * DP + d] = v;
+    }
+  }
+};
+
+// acc[i][j] = x_(4 tr + i) . d_(4 tc + j) over the two tiles.
+__device__ __forceinline__ void tile_dots(const float* xs, const float* ds,
+                                          int D, int tr, int tc,
+                                          float acc[4][4]) {
+  const int DP = D + 1;
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int d = 0; d < D; ++d) {
+    float xv[4], dv[4];
+    for (int q = 0; q < 4; ++q) {
+      xv[q] = xs[(tr * 4 + q) * DP + d];
+      dv[q] = ds[(tc * 4 + q) * DP + d];
+    }
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j)
+        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(xv[i], dv[j]));
+  }
+}
+
+}  // namespace afis_adc

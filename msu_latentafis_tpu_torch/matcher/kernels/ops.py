@@ -1,4 +1,4 @@
-"""The dense matcher's three kernels: wrappers and plain versions.
+"""The matcher's kernels: wrappers and plain versions.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then either runs the plain PyTorch version (the tensors lie
@@ -15,6 +15,16 @@ card (``chip_smoke.py`` holds them to rtol 1e-5 / atol 1e-4).
 | adc_rowmax | fused_adc_rowmax :1489 (_adc_rowmax_kernel :29) |
 | texture_match | fused_texture_match :1031 (_make_texture_match_kernel :939) |
 | minutiae_match | fused_minutiae_match :878 (_make_minutiae_match_kernel :682) |
+| minu_screen | fused_minu_screen fast path :1312 (_minu_screen_fast_kernel :1262) |
+| adc_screen | fused_adc_screen :1106 (_adc_augmax_kernel :1080) |
+| adc_screen_codes | fused_adc_screen_codes :1213 (_adc_screen_codes_kernel :1174) |
+| adc_rowmax_codes | fused_adc_rowmax_codes :1434 (_adc_rowmax_codes_kernel :1387) |
+
+The ``_codes`` variants take uint8 PQ codes [B, Rt, S] and the codebook
+[S, C, sub_dim] in place of predecoded descriptors; their plain versions
+decode (an exact gather) and run the predecoded plain version, and their
+kernels decode each tile from the codebook in shared memory, so a codes
+variant and its predecoded twin give the same bits on the same entry.
 """
 from __future__ import annotations
 
@@ -22,17 +32,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..graph_filter import filter_correspondences
+from ..graph_filter import filter_correspondences, seq_dots, seq_sum
 from ..minutiae_match import (SENT as MINU_SENT, minutiae_similarity,
                               mutual_normalize, row_candidates)
+from ..texture_match import decode_pq
 from . import _build
 
 NEG_BIG = -1e30          # invalid rolled columns of the ADC similarity
 TEX_SENT = -1e4          # invalid latent rows of the texture selection
+SCREEN_SENT = -1e4       # invalid rolled columns of the ADC screen
 BISECT_ITERS = 26
 MAX_K = 256              # filter slots a thread block holds (8 mask words)
 
-KERNELS = ("adc_rowmax", "texture_match", "minutiae_match")
+KERNELS = ("adc_rowmax", "texture_match", "minutiae_match", "minu_screen",
+           "adc_screen", "adc_screen_codes", "adc_rowmax_codes")
 
 
 def launch_counts() -> dict:
@@ -67,6 +80,19 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _check_codes(codes: torch.Tensor, codebook: torch.Tensor, B: int,
+                 Rt: int, D: int, device) -> Tuple[int, int, int]:
+    """Shapes of a codes operand [B, Rt, S] u8 and its codebook [S, C, d]
+    with S * d == D; returns (S, C, d)."""
+    S, C, sd = codebook.shape
+    if S * sd != D:
+        raise ValueError(f"codebook {tuple(codebook.shape)} decodes to "
+                         f"{S * sd} features, expected {D}")
+    _check("codes", codes, (B, Rt, S), torch.uint8, device)
+    _check("codebook", codebook, (S, C, sd), torch.float32, device)
+    return S, C, sd
+
+
 # ---------------------------------------------------------------------------
 # adc_rowmax
 # ---------------------------------------------------------------------------
@@ -75,12 +101,7 @@ def adc_rowmax_plain(x, lsq, dec, rsq, rvalid) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
     """Row max / first argmax of simi = 2 x.dec + (6 - |x|^2 - |c|^2), with
     invalid rolled columns pushed down by (v - 1) * 1e30."""
-    D = x.shape[-1]
-    acc = torch.zeros((x.shape[0], dec.shape[0], x.shape[1], dec.shape[1]),
-                      dtype=torch.float32, device=x.device)
-    for d in range(D):
-        acc = acc + x[:, None, :, None, d] * dec[None, :, None, :, d]
-    simi = 2.0 * acc + ((6.0 - lsq)[:, None, :, None] - rsq[None, :, None, :])
+    simi = 2.0 * seq_dots(x, dec) + ((6.0 - lsq)[:, None, :, None] - rsq[None, :, None, :])
     simi = simi + (rvalid[None, :, None, :] - 1.0) * -NEG_BIG
     best = simi.max(dim=-1).values
     iota = torch.arange(simi.shape[-1], device=x.device, dtype=torch.int32)
@@ -121,6 +142,173 @@ def adc_rowmax(x: torch.Tensor, lsq: torch.Tensor, dec: torch.Tensor,
 
 
 adc_rowmax.launches = 0
+
+
+def adc_rowmax_codes_plain(x, lsq, codes, codebook, rsq, rvalid):
+    return adc_rowmax_plain(x, lsq, decode_pq(codes, codebook), rsq, rvalid)
+
+
+def adc_rowmax_codes(x: torch.Tensor, lsq: torch.Tensor, codes: torch.Tensor,
+                     codebook: torch.Tensor, rsq: torch.Tensor,
+                     rvalid: torch.Tensor):
+    """``adc_rowmax`` over uint8 PQ codes [B, Rt, S] and the codebook
+    [S, C, d] (S * d = D): the same best / bestj, bit for bit, as
+    ``adc_rowmax`` on ``decode_pq(codes, codebook)``."""
+    NL, Lt, D = x.shape
+    B, Rt = rsq.shape
+    dev = x.device
+    f32 = torch.float32
+    _check("x", x, (NL, Lt, D), f32, dev)
+    _check("lsq", lsq, (NL, Lt), f32, dev)
+    S, C, sd = _check_codes(codes, codebook, B, Rt, D, dev)
+    _check("rsq", rsq, (B, Rt), f32, dev)
+    _check("rvalid", rvalid, (B, Rt), f32, dev)
+    if not _is_cuda(dev):
+        return adc_rowmax_codes_plain(x, lsq, codes, codebook, rsq, rvalid)
+    best = torch.empty((NL, B, Lt), dtype=f32, device=dev)
+    bestj = torch.empty((NL, B, Lt), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    err = lib.afis_adc_rowmax_codes(
+        *(t.data_ptr() for t in (x, lsq, codes, codebook, rsq, rvalid, best,
+                                 bestj)),
+        NL, Lt, B, Rt, S, C, sd, _stream(dev))
+    _build.check(err, "adc_rowmax_codes")
+    adc_rowmax_codes.launches += 1
+    return best, bestj
+
+
+adc_rowmax_codes.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# screens
+# ---------------------------------------------------------------------------
+
+def adc_screen_plain(x, lsq, lvalid, dec, rsq, rvalid, tau=0.0):
+    """sum_i max(2 max_j ((x_i.dec_j + -(rsq_j / 2)) + mask_j)
+    + ((6 - lsq_i) - tau), 0) * lvalid_i, the sum in row order; mask_j is
+    0 for a valid rolled column and -1e4 for an invalid one."""
+    nh = -(0.5 * rsq)
+    mask = torch.where(rvalid > 0, torch.zeros_like(rvalid),
+                       torch.full_like(rvalid, SCREEN_SENT))
+    v = (seq_dots(x, dec) + nh[None, :, None, :]) + mask[None, :, None, :]
+    best = v.max(dim=-1).values                          # [NL, B, Lt]
+    t6 = (6.0 - lsq) - tau
+    term = torch.clamp(2.0 * best + t6[:, None, :], min=0.0) \
+        * lvalid[:, None, :]
+    return seq_sum(term, dim=2)
+
+
+def _adc_screen_args(x, lsq, lvalid, rsq, rvalid):
+    NL, Lt, D = x.shape
+    B, Rt = rsq.shape
+    dev = x.device
+    f32 = torch.float32
+    _check("x", x, (NL, Lt, D), f32, dev)
+    _check("lsq", lsq, (NL, Lt), f32, dev)
+    _check("lvalid", lvalid, (NL, Lt), f32, dev)
+    _check("rsq", rsq, (B, Rt), f32, dev)
+    _check("rvalid", rvalid, (B, Rt), f32, dev)
+    return NL, Lt, D, B, Rt, dev
+
+
+def adc_screen(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
+               dec: torch.Tensor, rsq: torch.Tensor, rvalid: torch.Tensor,
+               tau: float = 0.0) -> torch.Tensor:
+    """Texture screening score [NL, B] (an upper bound on the exact texture
+    score at tau = 0).
+
+    x [NL, Lt, D], lsq / lvalid [NL, Lt] f32; dec [B, Rt, D] predecoded
+    gallery descriptors, rsq / rvalid [B, Rt] f32.
+    """
+    NL, Lt, D, B, Rt, dev = _adc_screen_args(x, lsq, lvalid, rsq, rvalid)
+    _check("dec", dec, (B, Rt, D), torch.float32, dev)
+    if not _is_cuda(dev):
+        return adc_screen_plain(x, lsq, lvalid, dec, rsq, rvalid, tau)
+    out = torch.empty((NL, B), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    err = lib.afis_adc_screen(
+        *(t.data_ptr() for t in (x, lsq, lvalid, dec, rsq, rvalid, out)),
+        NL, Lt, B, Rt, D, float(tau), _stream(dev))
+    _build.check(err, "adc_screen")
+    adc_screen.launches += 1
+    return out
+
+
+adc_screen.launches = 0
+
+
+def adc_screen_codes_plain(x, lsq, lvalid, codes, codebook, rsq, rvalid,
+                           tau=0.0):
+    return adc_screen_plain(x, lsq, lvalid, decode_pq(codes, codebook), rsq,
+                            rvalid, tau)
+
+
+def adc_screen_codes(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
+                     codes: torch.Tensor, codebook: torch.Tensor,
+                     rsq: torch.Tensor, rvalid: torch.Tensor,
+                     tau: float = 0.0) -> torch.Tensor:
+    """``adc_screen`` over uint8 PQ codes [B, Rt, S] and the codebook
+    [S, C, d]: bit for bit ``adc_screen`` on the decoded gallery."""
+    NL, Lt, D, B, Rt, dev = _adc_screen_args(x, lsq, lvalid, rsq, rvalid)
+    S, C, sd = _check_codes(codes, codebook, B, Rt, D, dev)
+    if not _is_cuda(dev):
+        return adc_screen_codes_plain(x, lsq, lvalid, codes, codebook, rsq,
+                                      rvalid, tau)
+    out = torch.empty((NL, B), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    err = lib.afis_adc_screen_codes(
+        *(t.data_ptr() for t in (x, lsq, lvalid, codes, codebook, rsq, rvalid,
+                                 out)),
+        NL, Lt, B, Rt, S, C, sd, float(tau), _stream(dev))
+    _build.check(err, "adc_screen_codes")
+    adc_screen_codes.launches += 1
+    return out
+
+
+adc_screen_codes.launches = 0
+
+
+def minu_screen_plain(ldes, lvalid, rdes, rvalid):
+    """min(sum_p relu(max_r s), sum_r relu(max_p s)) of s = the product of
+    the validity-zeroed descriptors, sums in index order."""
+    s = seq_dots(ldes * lvalid[..., None], rdes * rvalid[..., None])
+    rb = seq_sum(torch.clamp(s.max(dim=-1).values, min=0.0), dim=-1)
+    cb = seq_sum(torch.clamp(s.max(dim=-2).values, min=0.0), dim=-1)
+    return torch.minimum(rb, cb)
+
+
+def minu_screen(ldes: torch.Tensor, lvalid: torch.Tensor, rdes: torch.Tensor,
+                rvalid: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    """Minutiae screening score [NT, B] (an upper bound on the exact
+    minutiae-template score).
+
+    ldes [NT, P, D], lvalid [NT, P] f32; rdes [B, R, D], rvalid [B, R] f32.
+    """
+    if normalize:
+        raise NotImplementedError(
+            "minu_screen(normalize=True) is not ported yet (ROADMAP Queue 2)")
+    NT, P, D = ldes.shape
+    B, R, _ = rdes.shape
+    dev = ldes.device
+    f32 = torch.float32
+    _check("ldes", ldes, (NT, P, D), f32, dev)
+    _check("lvalid", lvalid, (NT, P), f32, dev)
+    _check("rdes", rdes, (B, R, D), f32, dev)
+    _check("rvalid", rvalid, (B, R), f32, dev)
+    if not _is_cuda(dev):
+        return minu_screen_plain(ldes, lvalid, rdes, rvalid)
+    out = torch.empty((NT, B), dtype=f32, device=dev)
+    lib = _build.load()
+    err = lib.afis_minu_screen(
+        *(t.data_ptr() for t in (ldes, lvalid, rdes, rvalid, out)),
+        NT, P, B, R, D, _stream(dev))
+    _build.check(err, "minu_screen")
+    minu_screen.launches += 1
+    return out
+
+
+minu_screen.launches = 0
 
 
 # ---------------------------------------------------------------------------

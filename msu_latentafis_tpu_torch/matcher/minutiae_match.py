@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .graph_filter import seq_sum
+from .graph_filter import seq_dots, seq_sum
 
 SENT = -3.0          # below any normalized similarity; marks invalid pairs
 
@@ -30,12 +30,7 @@ def minutiae_similarity(lat_des: torch.Tensor, lat_validf: torch.Tensor,
     The D-long dot products run in index order, one rounding per product
     and per sum.
     """
-    D = lat_des.shape[-1]
-    acc = torch.zeros((lat_des.shape[0], rol_des.shape[0], lat_des.shape[1],
-                       rol_des.shape[1]), dtype=torch.float32,
-                      device=lat_des.device)
-    for d in range(D):
-        acc = acc + lat_des[:, None, :, None, d] * rol_des[None, :, None, :, d]
+    acc = seq_dots(lat_des, rol_des)
     pairv = lat_validf[:, None, :, None] * rol_validf[None, :, None, :]
     return torch.clamp(acc, min=0.0) * pairv
 

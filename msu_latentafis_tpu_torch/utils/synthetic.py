@@ -4,7 +4,7 @@ The host half is a NumPy copy of the JAX package's generator (final ``.dat``
 semantics: texture coordinates already quantized, descriptors L2-normalized
 to 1.73 as after dimensionality reduction). ``device_synthetic_gallery``
 fills a gallery directly on the card from a ``torch.Generator``, so a
-16K-entry gallery costs no host generation or upload.
+100K-entry gallery costs no host generation or upload.
 """
 from __future__ import annotations
 
@@ -166,11 +166,15 @@ def synthetic_packed_gallery(rng: np.random.Generator, codebook: np.ndarray,
 
 def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
                              n_tex: int = 448, des_dim: int = 96,
-                             seed: int = 0, chunk: int = 2048):
+                             seed: int = 0, chunk: int = 2048,
+                             both_layouts: bool = False):
     """A DeviceGallery of G random rolled templates generated on the
-    engine's device from ``torch.Generator(seed)``, in the engine's layout
-    (predecoded f32 ``tex_dec``). G is padded to a block multiple; padding
-    entries have zero counts and score -1."""
+    engine's device from ``torch.Generator(seed)``, predecoded (f32
+    ``tex_dec``). With ``both_layouts`` it returns the pair (predecoded,
+    codes-resident): the second holds the uint8 ``tex_codes`` the first's
+    ``tex_dec`` decodes from and shares every other tensor with it. G is
+    padded to a block multiple; padding entries have zero counts and score
+    -1."""
     from ..matcher.engine import DeviceGallery
     from ..matcher.texture_match import decode_pq
 
@@ -187,53 +191,70 @@ def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
     cb = engine.codebook_t
     S, C, _ = cb.shape
     f32 = dict(dtype=torch.float32, device=dev)
-    gal = DeviceGallery(
+    t = dict(
         minu_des=torch.empty((Gp, Rm, D), **f32),
         minu_pack=torch.empty((Gp, Rm, 4), **f32),
         minu_n=torch.zeros((Gp,), dtype=torch.int32, device=dev),
         tex_dec=torch.empty((Gp, Rt, D), **f32),
+        tex_codes=torch.zeros((Gp, Rt, S), dtype=torch.uint8, device=dev)
+        if both_layouts else None,
         tex_sqnorm=torch.empty((Gp, Rt), **f32),
         tex_pack=torch.empty((Gp, Rt, 4), **f32),
-        tex_n=torch.zeros((Gp,), dtype=torch.int32, device=dev),
-        names=[str(i) for i in range(G)], n_real=G)
-    gal.minu_n[:G] = Rm
-    gal.tex_n[:G] = Rt
+        tex_n=torch.zeros((Gp,), dtype=torch.int32, device=dev))
+    t["minu_n"][:G] = Rm
+    t["tex_n"][:G] = Rt
     for a in range(0, Gp, chunk):
         n = min(chunk, Gp - a)
         des = torch.randn((n, Rm, D), generator=gen, **f32)
         des /= des.norm(dim=2, keepdim=True) + 1e-7
-        gal.minu_des[a:a + n] = des * DES_NORM
+        t["minu_des"][a:a + n] = des * DES_NORM
         ori = uniform((n, Rm), -np.pi, np.pi)
-        gal.minu_pack[a:a + n] = torch.stack(
+        t["minu_pack"][a:a + n] = torch.stack(
             [uniform((n, Rm), 24, 488), uniform((n, Rm), 24, 488),
              torch.cos(ori), torch.sin(ori)], dim=2)
         codes = torch.randint(0, C, (n, Rt, S), generator=gen, device=dev)
+        if both_layouts:
+            t["tex_codes"][a:a + n] = codes
         dec = decode_pq(codes, cb)
-        gal.tex_dec[a:a + n] = dec
-        gal.tex_sqnorm[a:a + n] = (dec * dec).sum(dim=2)
+        t["tex_dec"][a:a + n] = dec
+        t["tex_sqnorm"][a:a + n] = (dec * dec).sum(dim=2)
         tori = uniform((n, Rt), -np.pi, np.pi)
-        gal.tex_pack[a:a + n] = torch.stack(
+        t["tex_pack"][a:a + n] = torch.stack(
             [torch.floor(uniform((n, Rt), 0, 30)),
              torch.floor(uniform((n, Rt), 0, 30)),
              torch.cos(tori), torch.sin(tori)], dim=2)
-    for f in ("minu_des", "minu_pack", "tex_dec", "tex_sqnorm", "tex_pack"):
-        getattr(gal, f)[G:] = 0
-    return gal
+    for v in t.values():
+        if v is not None:
+            v[G:] = 0
+    codes, dec = t.pop("tex_codes"), t.pop("tex_dec")
+
+    def gallery(**tex):
+        return DeviceGallery(names=[str(i) for i in range(G)], n_real=G,
+                             **t, **tex)
+    if not both_layouts:
+        return gallery(tex_dec=dec)
+    return gallery(tex_dec=dec), gallery(tex_codes=codes)
 
 
 def plant_gallery_entries(gallery, engine, packed_mates,
                           positions: Sequence[int]) -> None:
     """Overwrite gallery rows at ``positions`` in place with real packed
     templates (planted mates); ``packed_mates`` holds len(positions)
-    entries and is converted with ``engine.load_gallery``. Per-entry axes
-    are zero-padded up to the gallery's capacity."""
-    small = engine.load_gallery(packed_mates)
+    entries. Every tensor the gallery holds is written, in either layout;
+    per-entry axes are zero-padded up to the gallery's capacity."""
+    from ..matcher.texture_match import decode_pq
+    loaded = engine.load_gallery(packed_mates)
+    codes = torch.as_tensor(packed_mates.tex_codes, device=engine.device)
+    small = {f: getattr(loaded, f) for f in gallery.TENSORS}
+    small.update(tex_codes=codes, tex_dec=decode_pq(codes, engine.codebook_t))
     pos = torch.as_tensor(list(positions), dtype=torch.long,
                           device=gallery.minu_des.device)
     n = len(positions)
-    for f in ("minu_des", "minu_pack", "minu_n", "tex_dec", "tex_sqnorm",
-              "tex_pack", "tex_n"):
-        big, sm = getattr(gallery, f), getattr(small, f)[:n]
+    for f in gallery.TENSORS:
+        big = getattr(gallery, f)
+        if big is None:
+            continue
+        sm = small[f][:n]
         pad = []
         for b, s in zip(reversed(big.shape[1:]), reversed(sm.shape[1:])):
             if s > b:

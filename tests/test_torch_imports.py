@@ -57,7 +57,8 @@ def test_no_jax_package_imports():
 
 
 def test_kernels_build_only_with_nvcc():
-    """One nvcc call over csrc/*.cu; no PyTorch extension builder."""
+    """nvcc over csrc/*.cu (one compile per source, one link); no PyTorch
+    extension builder."""
     text = "\n".join(f.read_text() for f in _sources())
     for banned in (r"cpp_extension\s*(\.|import)", r"import\s+[\w.]*cpp_extension",
                    r"#include\s*[<\"]torch/", r"torch\.compile\(",
@@ -66,5 +67,6 @@ def test_kernels_build_only_with_nvcc():
     from msu_latentafis_tpu_torch.matcher.kernels import _build
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert {s.name for s in _build.sources()} == {
-        "adc_rowmax.cu", "texture_match.cu", "minutiae_match.cu"}
+        "adc_rowmax.cu", "adc_screen.cu", "minu_screen.cu",
+        "texture_match.cu", "minutiae_match.cu"}
     assert _build.library_path().parent == _build.BUILD_DIR
