@@ -7,14 +7,19 @@ Phases (any failure exits nonzero; there is no CPU fallback):
   0. setup: card name and power limit, a faulthandler watchdog, the kernel
      build (one nvcc per source, started together, and a link) and its
      seconds;
-  1. each of the seven kernels against its plain PyTorch version on the
-     card, on one 64-entry gallery block with 2 latents at full widths
-     (Lm 64, Rm 96, Lt 448, Rt 448, D 96, T 3): maximum difference against
-     the stated tolerance, kernel / plain / library times, bound; the
-     codes kernels must equal their predecoded twins bit for bit;
-  2. the CLI: a 64-file synthetic .dat gallery with one planted mate,
-     ``cli.main(["match", ...])`` dense and with ``--rerank 16``, the mate
-     must be rank 1 in the CSV;
+  1. each kernel against its plain PyTorch version on the card, on one
+     64-entry gallery block with 2 latents at full widths (Lm 64, Rm 96,
+     Lt 448, Rt 448, D 96, T 3): maximum difference against the stated
+     tolerance, kernel / plain / library times, bound; the codes kernels
+     must equal their predecoded twins bit for bit. The normalized screen
+     on the same block; the packed graph filter at stages 0-6 and with a
+     stage2_cap below the survivor count, the xy / ori filter, and the
+     infuse filter with val and with simi, on sets of that block's width;
+     the large-print block: minutiae_match and both screens at P 128 /
+     R 1000 (the reference's largest rolled print) and P 256 / R 96;
+  2. the CLI: a 64-file synthetic .dat gallery with one planted mate and
+     one rolled print of 1,000 minutiae, ``cli.main(["match", ...])`` dense
+     and with ``--rerank 16``, the mate must be rank 1 in the CSV;
   3. the dense engine on a 16,384-entry gallery built on the card from a
      seed, 4 latents with planted mates through ``match_scores_batch``:
      every mate at rank 1, every dense kernel launched; then the three
@@ -24,7 +29,10 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      with m 512, without and with prescreen 256 / 64 / 1: mates at rank 1,
      exact scores equal to phase 3's dense scores at the kept indices, the
      screen above the exact score (no prescreen), NaN margins (prescreen);
-  5. serving at the JAX bench's configuration: 100,000 entries built on the
+     then the same with ``normalize=True`` (kept exact scores equal to the
+     dense ones; the mates' ranks printed, not asserted: the normalized
+     screen is a heuristic);
+  5. serving at the JAX bench's gallery size: 100,000 entries built on the
      card from one seed in both layouts (predecoded f32 and codes-resident
      uint8, from the same codes), 8 latents with planted mates, m 512,
      prescreen 256 / 64 / 1: mates at rank 1, the two layouts' results
@@ -32,12 +40,23 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      serving kernels held and timed as this path launches them: the screens
      on its 16,384-entry chunks and its tail chunk with the truncated
      latents (plain versions a slice of entries at a time), the codes ADC
-     row max on one latent's first rerank block.
+     row max on one latent's first rerank block. Then ``normalize=True``
+     serving on the predecoded gallery with the same prescreen, and the
+     normalized screen held and timed on that path's chunks;
+  6. the standalone graph filter at the shapes of the two ported microbench
+     scripts (``msu_latentafis_tpu_torch/scripts/``): the packed kernel at
+     stages 0-6 over 24 x 512 sets of K 120 and 8 x 512 of K 200, the
+     minutiae and texture kernels at the same sets, the xy / ori filter,
+     and the infuse filter at NT 24 x B 512 x P 64 x R 96 with val and with
+     simi; each held against its plain version (stages 0-5 on a slice of
+     sets); then infuse after the port's exact selection against
+     minutiae_match at row_cap = R on one block.
 The kernels' JSON record takes each kernel's launches from the path that
-runs it (phase 3, or phase 5 in its layout) and its numbers from the same
-path's shapes and data: means per launch over one call's chunks (the
-screens) or over its blocks with and without a mate (the dense kernels),
-so that ms x launches is the call's time in that kernel. The last two lines
+runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
+6) and its numbers from the same path's shapes and data: means per launch
+over one call's chunks (the screens) or over its blocks with and without a
+mate (the dense kernels), so that ms x launches is the call's time in that
+kernel; the filter kernels at the first microbench shape. The last two lines
 of standard output are that record and {"ok": true, "device": {...}}. The
 script imports no JAX.
 """
@@ -56,8 +75,10 @@ import warnings
 WATCHDOG_S = 300             # a hang ends as a traceback and a nonzero exit
 GALLERY_G = 16384            # the profile gallery size (docs/PERF.md:5-8)
 N_LATENTS = 4
-SERVE_G = 100000             # the JAX bench's serving configuration
-SERVE_LATENTS = 8            # (bench.py:10-13,120-132)
+SERVE_G = 100000             # the JAX bench's gallery, latents and
+SERVE_LATENTS = 8            # prescreen (bench.py:10,120-126); m 512 is
+# its docstring's rerank size (:12), while its code defaults BENCH_RERANK
+# to 256 (:188); m 512 keeps these numbers comparable with earlier runs
 SERVE = dict(m=512, prescreen_k=256, prescreen_lt=64, prescreen_t=1)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
@@ -72,7 +93,16 @@ KERNEL_META = {
     "adc_screen": ("adc_screen.cu", 1106),
     "adc_screen_codes": ("adc_screen.cu", 1213),
     "adc_rowmax_codes": ("adc_rowmax.cu", 1434),
+    "minu_screen_norm": ("minu_screen_norm.cu", 1370),
+    "graph_filter_packed": ("graph_filter.cu", 456),
+    "graph_filter": ("graph_filter.cu", 410),
+    "graph_filter_infuse": ("graph_filter_infuse.cu", 551),
 }
+# graph_filter launches graph_filter_packed's kernel after building the
+# cos / sin packs, as fused_graph_filter wraps the same Pallas body
+SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
+SERVE_NORM = dict(SERVE, normalize=True)
+LARGE_PRINTS = ((128, 1000), (256, 96))   # (P, R) of the large-print block
 DENSE_KERNELS = ("adc_rowmax", "texture_match", "minutiae_match")
 
 
@@ -192,6 +222,40 @@ def rowmax_library(x, lsq, rsq, rvalid, dec=None, codes=None, codebook=None):
     return (simi + (rvalid[None, :, None, :] - 1.0) * 1e30).max(-1)
 
 
+def norm_library(ldes, lvalid, rdes, rvalid):
+    import torch
+    lv, rv = lvalid[:, None, :, None], rvalid[None, :, None, :]
+    g = torch.matmul(ldes[:, None], rdes.transpose(1, 2)[None]) \
+        .clamp(min=0.0) * lv * rv
+    n = g / (g.sum(-1, keepdim=True) + g.sum(-2, keepdim=True) - g
+             + 1e-6) * lv * rv
+    return torch.minimum(n.amax(-1).sum(-1), n.amax(-2).sum(-1))
+
+
+def by_slices(fn, args: dict, step: int, n: int, dims: dict, out_dim: int):
+    """fn(**args) on ``step``-long slices of one axis of length n (axis
+    ``dims[k]`` of each argument k in ``dims``), outputs joined on
+    ``out_dim``: the plain versions a bounded slice at a time."""
+    import torch
+
+    def run():
+        return torch.cat([fn(**{
+            k: v.narrow(dims[k], a, min(step, n - a))
+            if k in dims and v is not None else v for k, v in args.items()})
+            for a in range(0, n, step)], dim=out_dim)
+    return run
+
+
+def with_stats(plain, sink: list):
+    """``plain`` that appends each call's filter statistics to ``sink``."""
+    def run(**kw):
+        st = {}
+        out = plain(stats=st, **kw)
+        sink.append(st)
+        return out
+    return run
+
+
 def hold(fn, plain, library, reps: int, twin=None) -> dict:
     """One kernel launch held against its plain version on the same inputs
     (first output within TOL, the others equal) and, for a codes kernel,
@@ -282,6 +346,176 @@ def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
     return rec
 
 
+def norm_record(mscr, step: int, reps: int) -> dict:
+    """The normalized minutiae screen on one launch's inputs; plain version
+    and library call ``step`` entries at a time."""
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    NT, P, D = mscr["ldes"].shape
+    B, R, _ = mscr["rdes"].shape
+    r = hold(lambda: ops.minu_screen_norm(**mscr),
+             by_entries(ops.minu_screen_norm_plain, mscr, step),
+             by_entries(norm_library, mscr, step), reps)
+    r["bound"] = bound(2.0 * NT * B * P * R * D,
+                       tensor_bytes(mscr) + r["out_bytes"])
+    return r
+
+
+SET_DIMS = {k: 0 for k in ("val", "gl", "gr", "li", "ri", "valid", "lxy",
+                           "lori", "rxy", "rori")}
+INFUSE_DIMS = dict(val=1, li=1, ri=1, valid=1, rpackT=0, simi=1)
+
+
+def filter_record(kernel, plain, args: dict, reps: int, step: int,
+                  dims: dict, out_dim: int, full: bool = True) -> dict:
+    """A graph-filter kernel held against its plain version; the plain
+    version runs ``step`` sets (or entries) at a time. The bound counts
+    the filter operations this data needs (``full``: the whole filter; else
+    a stage hook, bounded by its bytes alone)."""
+    n = args["li"].shape[out_dim]
+    sink = []
+    kw = {k: v for k, v in args.items() if k not in ("lookup", "dist_iters")}
+
+    def run(**a):
+        return plain(lookup=args["lookup"], dist_iters=args["dist_iters"],
+                     **a)
+    r = hold(lambda: kernel(**args),
+             by_slices(with_stats(run, sink) if full else run, kw, step, n,
+                       dims, out_dim), None, reps)
+    n_slices = -(-n // step)
+    fops = sum(filter_ops(st["k_valid"], st["n_stage1"], args["dist_iters"])
+               for st in sink[:n_slices]) if full else 0.0
+    r["bound"] = bound(fops, tensor_bytes(kw) + r["out_bytes"])
+    return r
+
+
+def filter_sets(rng, N: int, K: int, lookup: bool, device):
+    """N random correspondence sets of K slots, as the microbench scripts
+    draw them (coordinates below 30 with the lookup distance, else 480)."""
+    from msu_latentafis_tpu_torch.scripts.microbench_body_stages import (
+        make_sets)
+    val, gl, gr, li, ri, valid = make_sets(rng, N, K, 0, 30 if lookup else 480,
+                                           device)
+    return dict(val=val, gl=gl, gr=gr, li=li, ri=ri, valid=valid)
+
+
+def infuse_args(rng, NT, B, P, R, K, device, simi: bool):
+    """Correspondence sets over an [NT, B] grid and the coordinate planes
+    (float distance range), with val or with simi [NT, B, P, R]."""
+    import torch
+
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+    args = dict(li=put(rng.integers(0, P, (NT, B, K)), torch.int32),
+                ri=put(rng.integers(0, R, (NT, B, K)), torch.int32),
+                valid=put(rng.random((NT, B, K)) > 0.15, torch.bool),
+                lpackT=put(rng.uniform(0, 480, (NT, 4, P))),
+                rpackT=put(rng.uniform(0, 480, (B, 4, R))))
+    if simi:
+        g = torch.Generator(device=device)
+        g.manual_seed(int(rng.integers(1 << 30)))
+        args.update(val=None, simi=3.0 * torch.rand(
+            (NT, B, P, R), generator=g, device=device))
+    else:
+        args.update(val=put(rng.uniform(0.5, 3.0, (NT, B, K))), simi=None)
+    return args
+
+
+def filter_block_records(rng, device, NP: int, reps: int) -> dict:
+    """The three standalone filter kernels on NP sets of the minutiae
+    width (K 120, float distance, 5 iterations) and the texture width
+    (K 200, lookup, 3): packed at stages 0-6 and with a stage2_cap below
+    the most stage-1 survivors, xy / ori, infuse with val and simi."""
+    import torch
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    rec = {}
+    for tag, K, lookup, iters in (("minu", 120, False, 5),
+                                  ("tex", 200, True, 3)):
+        sets = filter_sets(rng, NP, K, lookup, device)
+        st = {}
+        ops.graph_filter_packed_plain(**sets, lookup=lookup,
+                                      dist_iters=iters, stats=st)
+        n1 = st["n_stage1"]
+        cap = max(1, int(n1.max()) - 1)
+        log(f"[kernels] {tag} sets: stage-1 survivors {int(n1.min())}-"
+            f"{int(n1.max())}, stage2_cap {cap} truncates "
+            f"{int((n1 > cap).sum())} of {NP} sets")
+        for stages, c in [(k, 0) for k in range(7)] + [(4, cap), (6, cap)]:
+            a = dict(sets, lookup=lookup, dist_iters=iters, stages=stages,
+                     stage2_cap=c)
+            rec[f"graph_filter_packed {tag} st{stages} cap{c}"] = \
+                filter_record(ops.graph_filter_packed,
+                              ops.graph_filter_packed_plain, a, reps, NP,
+                              SET_DIMS, 0, full=stages == 6 and c == 0)
+        xy = dict(val=sets["val"], lxy=sets["gl"][..., :2].contiguous(),
+                  rxy=sets["gr"][..., :2].contiguous(),
+                  lori=sets["gl"][..., 2].contiguous(),
+                  rori=sets["gr"][..., 2].contiguous(), li=sets["li"],
+                  ri=sets["ri"], valid=sets["valid"], lookup=lookup,
+                  dist_iters=iters)
+        rec[f"graph_filter {tag}"] = filter_record(
+            ops.graph_filter, ops.graph_filter_plain, xy, reps, NP, SET_DIMS,
+            0)
+    for simi in (False, True):
+        a = dict(infuse_args(rng, 6, 64, 64, 96, 120, device, simi),
+                 lookup=False, dist_iters=5)
+        rec[f"graph_filter_infuse {'simi' if simi else 'val'}"] = \
+            filter_record(ops.graph_filter_infuse,
+                          ops.graph_filter_infuse_plain, a, reps, 64,
+                          INFUSE_DIMS, 1)
+    torch.cuda.synchronize()
+    return rec
+
+
+def large_print_records(rng, device, reps: int) -> dict:
+    """minutiae_match (row_cap 8) and both screens on 3 templates x 16
+    entries of a large print: P 128 / R 1000 and P 256 / R 96."""
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    rec = {}
+    for P, R in LARGE_PRINTS:
+        NT, B, D = 3, 16, 96
+        ld = rng.standard_normal((NT, P, D)).astype(np.float32)
+        rd = rng.standard_normal((B, R, D)).astype(np.float32)
+        n = min(P, R)
+        rd[0, :n] = ld[0, :n] + 0.2 * rng.standard_normal((n, D))
+        ld /= np.linalg.norm(ld, axis=-1, keepdims=True)
+        rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+
+        def pack(m, k):
+            xy = rng.uniform(0, 480, (m, k, 2))
+            o = rng.uniform(-np.pi, np.pi, (m, k))
+            return np.concatenate([xy, np.cos(o)[..., None],
+                                   np.sin(o)[..., None]], -1)
+        lp, rp = pack(NT, P), pack(B, R)
+        rp[0, :n] = lp[0, :n]
+        put = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                        device=device)
+        mscr = dict(ldes=put(ld), lvalid=put(rng.random((NT, P)) > 0.1),
+                    rdes=put(rd), rvalid=put(rng.random((B, R)) > 0.1))
+        minu = dict(mscr, lpack=put(lp), rpack=put(rp), top_n=120,
+                    row_cap=8, lookup=False, dist_iters=5)
+        tag = f"P {P} R {R}"
+        stats = {}
+        r = rec[f"minutiae_match {tag}"] = hold(
+            lambda: ops.minutiae_match(**minu),
+            lambda: ops.minutiae_match_plain(stats=stats, **minu), None,
+            reps)
+        pre_ops = NT * B * (2.0 * P * R * D + 5.0 * P * R + 2.0 * 8 * P * R
+                            + 26.0 * 8 * P)
+        r["bound"] = bound(pre_ops + filter_ops(stats["k_valid"],
+                                                stats["n_stage1"], 5),
+                           tensor_bytes(minu) + r["out_bytes"])
+        r = rec[f"minu_screen {tag}"] = hold(
+            lambda: ops.minu_screen(**mscr),
+            lambda: ops.minu_screen_plain(**mscr),
+            lambda: minu_library(**mscr), reps)
+        r["bound"] = bound(2.0 * NT * B * P * R * D,
+                           tensor_bytes(mscr) + r["out_bytes"])
+        rec[f"minu_screen_norm {tag}"] = norm_record(mscr, B, reps)
+    return rec
+
+
 def rowmax_codes_record(adc_codes, adc, reps: int) -> dict:
     """adc_rowmax_codes on one block, equal to adc_rowmax bit for bit."""
     from msu_latentafis_tpu_torch.matcher.kernels import ops
@@ -344,13 +578,20 @@ def phase_kernels(engine, cb, rng):
     rec.update(screen_records(mscr, sadc, sadc_codes, step=64, reps=20))
     rec["adc_rowmax_codes"] = rowmax_codes_record(
         engine.block_args(L, codes, 0)[1], adc, reps=20)
+    rec["minu_screen_norm"] = norm_record(mscr, 64, reps=20)
     check_records("kernels, one block", rec)
     log(f"[kernels] adc library (matmul + max) vs plain max diff "
         f"{rec['adc_rowmax']['library_err']:.3e}")
+    check_records("kernels, standalone filter (one block: 384 sets; infuse "
+                  "6 templates x 64 entries)",
+                  filter_block_records(rng, engine.device, 384, reps=10))
+    check_records("kernels, large prints (3 templates x 16 entries)",
+                  large_print_records(rng, engine.device, reps=5))
 
 
 def phase_cli(cb, rng, workdir):
-    """64 rolled .dat files (one planted mate) through cli.main."""
+    """64 rolled .dat files (one planted mate, one impostor of 1,000
+    minutiae, the reference's largest rolled print) through cli.main."""
     import numpy as np
     from msu_latentafis_tpu_torch import cli
     from msu_latentafis_tpu_torch.matcher.kernels import ops
@@ -373,11 +614,11 @@ def phase_cli(cb, rng, workdir):
     write_codebook(cbf, cb)
     lat = make_latent_template(rng, n_minu=48, n_tex=300)
     latf = os.path.join(workdir, "latent0.dat")
-    mate_idx = 37
+    mate_idx, big_idx = 37, 12
     for j in range(64):
         mated = j == mate_idx
         r = make_rolled_template(
-            rng, n_minu=int(rng.integers(50, 97)),
+            rng, n_minu=1000 if j == big_idx else int(rng.integers(50, 97)),
             n_tex=int(rng.integers(300, 449)),
             mated_latent=lat if mated else None,
             codebook=cb if mated else None)
@@ -403,7 +644,10 @@ def phase_cli(cb, rng, workdir):
             raise AssertionError(f"CLI ({label}) rank list wrong: {lines[:3]}")
         if min(counts[k] for k in kernels) <= 0:
             raise AssertionError(f"CLI ({label}) skipped a kernel: {counts}")
+        big = next((l for l in lines[1:] if f"r{big_idx:03d}," in l),
+                   "no rank of the 24 written")
         log(f"[cli] {label}: mate r{mate_idx:03d} at rank 1 ({lines[1]}), "
+            f"the 1,000-minutiae print r{big_idx:03d} at {big}, "
             f"{len(lines) - 1} ranks written, launches {counts}")
 
 
@@ -487,20 +731,33 @@ def mate_at_rank1(idx, exact, positions, label):
             raise AssertionError(f"{label}: latent {i}'s mate not at rank 1")
 
 
-def serving_launched(label, counts, gal):
-    """Serving launched every kernel of its gallery layout."""
-    names = ("minu_screen", "adc_screen_codes", "adc_rowmax_codes",
+def serving_launched(label, counts, gal, normalize=False):
+    """Serving launched every kernel of its gallery layout and screen."""
+    minu = "minu_screen_norm" if normalize else "minu_screen"
+    names = (minu, "adc_screen_codes", "adc_rowmax_codes",
              "minutiae_match", "texture_match") if gal.codes_resident else (
-        "minu_screen", "adc_screen", "adc_rowmax", "minutiae_match",
-        "texture_match")
+        minu, "adc_screen", "adc_rowmax", "minutiae_match", "texture_match")
     if min(counts[k] for k in names) <= 0:
         raise AssertionError(f"{label} skipped a kernel: {counts}")
+
+
+def mate_ranks(idx, exact, positions) -> list:
+    """Each latent's mate's rank among its kept exact scores (None when the
+    screen dropped it)."""
+    import numpy as np
+    ranks = []
+    for i, p in enumerate(positions):
+        order = idx[i][np.argsort(-exact[i], kind="stable")]
+        hit = np.nonzero(order == p)[0]
+        ranks.append(int(hit[0]) + 1 if hit.size else None)
+    return ranks
 
 
 def phase_serving(engine, layouts, lats, positions, dense):
     """Screen-then-rerank on phase 3's gallery: the kept candidates' exact
     scores are the dense scores at those indices, bit for bit; the same
-    gallery codes-resident gives the same results."""
+    gallery codes-resident gives the same results; normalize=True keeps
+    exact scores equal to the dense ones too (its mates' ranks printed)."""
     import numpy as np
     import torch
     from msu_latentafis_tpu_torch.matcher.kernels import ops
@@ -511,20 +768,27 @@ def phase_serving(engine, layouts, lats, positions, dense):
     for label, kw, g in (
             ("serve 16k", dict(m=SERVE["m"]), pre),
             ("serve 16k prescreen", SERVE, pre),
-            ("serve 16k prescreen codes-resident", SERVE, codes)):
+            ("serve 16k prescreen codes-resident", SERVE, codes),
+            ("serve 16k normalize", dict(m=SERVE["m"], normalize=True), pre),
+            ("serve 16k normalize prescreen", SERVE_NORM, pre)):
+        norm = kw.get("normalize", False)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         out[label] = idx, exact, margin, thr = \
             engine.match_scores_batch_reranked(lats, g, **kw)
         sec = time.perf_counter() - t0
         counts[label] = ops.launch_counts()
-        serving_launched(label, counts[label], g)
-        mate_at_rank1(idx, exact, positions, label)
+        serving_launched(label, counts[label], g, norm)
+        if norm:
+            log(f"[{label}] mates' ranks {mate_ranks(idx, exact, positions)} "
+                f"(a heuristic screen: printed, not asserted)")
+        else:
+            mate_at_rank1(idx, exact, positions, label)
         for i in range(len(lats)):
             rows = torch.as_tensor(idx[i])
             if not torch.equal(torch.as_tensor(exact[i]), dense[i, rows]):
                 raise AssertionError(f"{label}: exact != dense, latent {i}")
-            if "prescreen_k" not in kw and not bool(
+            if "prescreen_k" not in kw and not norm and not bool(
                     (screen[i, rows] + 1e-3 >= torch.as_tensor(exact[i]))
                     .all()):
                 raise AssertionError(f"{label}: screen below exact, "
@@ -642,6 +906,156 @@ def phase_scale(engine, cb, rng, card):
         engine.block_args(L1, codes.take(sub), 0)[1],
         engine.block_args(L1, pre.take(sub), 0)[1], reps=10)
     check_records("kernels, serving (screens per launch over one call)", rec)
+
+    # normalize=True serving on the predecoded gallery, same prescreen
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = engine.match_scores_batch_reranked(lats, pre, **SERVE_NORM)
+    first_s = time.perf_counter() - t0
+    counts["normalize"] = ops.launch_counts()
+    serving_launched("normalize", counts["normalize"], pre, True)
+    t0 = time.perf_counter()
+    again = engine.match_scores_batch_reranked(lats, pre, **SERVE_NORM)
+    steady_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b, equal_nan=True)
+               for a, b in zip(first, again)):
+        raise AssertionError("normalize serving not repeatable")
+    log(f"[scale] normalize=True predecoded: {SERVE_LATENTS} latents x "
+        f"{pre.size} entries (m {SERVE['m']}, prescreen "
+        f"{SERVE['prescreen_k']}/{SERVE['prescreen_lt']}/"
+        f"{SERVE['prescreen_t']}): first {first_s:.3f} s, steady "
+        f"{steady_s:.3f} s, {SERVE_LATENTS / steady_s:.2f} latents/s on "
+        f"{card}; mates' ranks {mate_ranks(again[0], again[1], positions)} "
+        f"(printed, not asserted); launches {counts['normalize']}")
+    if counts["normalize"]["minu_screen_norm"] != n_launch:
+        raise AssertionError(f"minu_screen_norm: "
+                             f"{counts['normalize']['minu_screen_norm']} "
+                             f"launches, expected {n_launch} chunks")
+    parts = []
+    for a, n in shapes:
+        mscr = engine.screen_args(L, pre, slice(a, a + SCREEN_CHUNK))[0]
+        r = norm_record(mscr, step=2048, reps=3)
+        check_records(f"kernels, normalize serving screen ({SERVE_LATENTS} "
+                      f"latents x {mscr['rdes'].shape[0]} entries, x{n} per "
+                      f"call)", {"minu_screen_norm": r})
+        parts.append((r, n))
+    rec["minu_screen_norm"] = per_launch(parts)
+    check_records("kernels, normalize serving (per launch over one call)",
+                  {"minu_screen_norm": rec["minu_screen_norm"]})
+    return counts, rec
+
+
+def phase_filters(engine, cb, rng, card):
+    """The standalone graph filter at the two microbench scripts' shapes.
+    The path: both scripts' runs (the packed kernel at stages 0-6 over
+    24 x 512 sets of K 120 and 8 x 512 of K 200, the minutiae and texture
+    kernels at the same sets), the xy / ori filter on the first shape's
+    sets, and the infuse filter at NT 24 x B 512 x P 64 x R 96 with val and
+    with simi. Then each held against its plain version (stages 0-5 on a
+    slice of sets), and infuse after the port's exact selection against
+    minutiae_match at row_cap = R on one block."""
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    from msu_latentafis_tpu_torch.matcher.minutiae_match import (
+        minutiae_correspondence_indices, minutiae_similarity)
+    from msu_latentafis_tpu_torch.scripts import microbench_body_stages as mbs
+    from msu_latentafis_tpu_torch.scripts import microbench_filter as mbf
+    from msu_latentafis_tpu_torch.utils.synthetic import (
+        device_synthetic_gallery, plant_gallery_entries)
+    dev = engine.device
+    rng0 = np.random.default_rng(0)        # the stage script's sets
+    shapes = {name: (dict(zip(("val", "gl", "gr", "li", "ri", "valid"),
+                              mbs.make_sets(rng0, NP, K, lo, hi, dev))),
+                     lookup, iters)
+              for name, NP, K, lookup, iters, lo, hi in mbs.SHAPES}
+    minu_sets = shapes["minu"][0]
+    xy = dict(val=minu_sets["val"],
+              lxy=minu_sets["gl"][..., :2].contiguous(),
+              rxy=minu_sets["gr"][..., :2].contiguous(),
+              lori=minu_sets["gl"][..., 2].contiguous(),
+              rori=minu_sets["gr"][..., 2].contiguous(),
+              li=minu_sets["li"], ri=minu_sets["ri"],
+              valid=minu_sets["valid"], lookup=False, dist_iters=5)
+    infuse = {k: dict(infuse_args(rng, 24, 512, 64, 96, 120, dev, k == "simi"),
+                      lookup=False, dist_iters=5) for k in ("val", "simi")}
+    torch.cuda.synchronize()
+
+    emit = lambda line: log(f"[filters] {line}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stage_ms = mbs.run(emit, dev)
+    mbf.run(emit, dev)
+    emit(json.dumps({"variant": "graph_filter[NP=12288,K=120]", "ms": round(
+        mbs.cuda_ms(lambda: ops.graph_filter(**xy)), 2)}))
+    for k, a in infuse.items():
+        emit(json.dumps({"variant": f"infuse/{k}[NT=24,B=512,K=120]",
+                         "ms": round(mbs.cuda_ms(
+                             lambda a=a: ops.graph_filter_infuse(**a)), 2)}))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"[filters] path {time.perf_counter() - t0:.1f} s on {card}; "
+        f"launches {counts}")
+    if min(counts[k] for k in ("graph_filter_packed", "graph_filter",
+                               "graph_filter_infuse", "minutiae_match",
+                               "texture_match")) <= 0:
+        raise AssertionError(f"filter path skipped a kernel: {counts}")
+
+    # every stage of both shapes on a slice of 512 sets
+    worst = 0.0
+    for name, (sets, lookup, iters) in shapes.items():
+        part = {k: v[:512] for k, v in sets.items()}
+        for st in mbs.STAGES:
+            got = ops.graph_filter_packed(**part, lookup=lookup,
+                                          dist_iters=iters, stages=st)
+            want = ops.graph_filter_packed_plain(**part, lookup=lookup,
+                                                 dist_iters=iters, stages=st)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            if not torch.allclose(got, want, **TOL):
+                raise AssertionError(f"packed {name} stage {st}: {err}")
+        log(f"[filters] {name}: stages 0-6 on 512 sets equal their plain "
+            f"versions; kernel ms per stage {[round(stage_ms[(name, st)], 4) for st in mbs.STAGES]}")
+    log(f"[filters] stage holds: max_abs_err {worst:.3e}")
+    rec = {"graph_filter_packed": filter_record(
+        ops.graph_filter_packed, ops.graph_filter_packed_plain,
+        dict(minu_sets, lookup=False, dist_iters=5), 4, 2048, SET_DIMS, 0),
+        "graph_filter": filter_record(ops.graph_filter,
+                                      ops.graph_filter_plain, xy, 4, 2048,
+                                      SET_DIMS, 0)}
+    for k, a in infuse.items():
+        name = "graph_filter_infuse" + ("" if k == "val" else " simi")
+        rec[name] = filter_record(ops.graph_filter_infuse,
+                                  ops.graph_filter_infuse_plain, a, 4, 64,
+                                  INFUSE_DIMS, 1)
+    check_records("kernels, filter path (24 x 512 sets of K 120; infuse "
+                  "24 x 512 x 64 x 96)", rec)
+
+    # infuse after the port's exact selection == minutiae_match, row_cap R
+    lats, mates = make_latents(rng, 2, cb)
+    gal = device_synthetic_gallery(engine, 64, seed=4)
+    plant_gallery_entries(gal, engine, mates, [0, 1])
+    L = engine.latent_side(engine.latent_batch(lats))
+    minu = engine.block_args(L, gal, 0)[0]
+    R = minu["rdes"].shape[1]
+    simi = minutiae_similarity(minu["ldes"], minu["lvalid"], minu["rdes"],
+                               minu["rvalid"])
+    li, ri, valid = minutiae_correspondence_indices(
+        simi, minu["lvalid"] > 0.5, minu["rvalid"] > 0.5,
+        top_n=minu["top_n"])
+    got = ops.graph_filter_infuse(
+        None, li, ri, valid, minu["lpack"].transpose(1, 2).contiguous(),
+        minu["rpack"].transpose(1, 2).contiguous(), False, 5, simi=simi)
+    want = ops.minutiae_match(**dict(minu, row_cap=R))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"[filters] infuse after exact selection vs minutiae_match at "
+        f"row_cap {R} ({tuple(got.shape)} pairs): max_abs_err {err:.3e} "
+        f"(rtol 1e-4 atol 1e-4); mates' best templates "
+        f"{got[:3, 0].max().item():.3f} / {got[3:, 1].max().item():.3f}")
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"infuse after selection != minutiae_match: "
+                             f"{err}")
     return counts, rec
 
 
@@ -741,13 +1155,22 @@ def main() -> int:
     t0 = time.perf_counter()
     scale, serve_rec = phase_scale(engine, cb, rng, card)
     log(f"[phase 5] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    filt, filt_rec = phase_filters(engine, cb, rng, card)
+    log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
     # each kernel's launches and numbers on the main path that runs it: the
-    # dense match (phase 3) and 100,000-entry serving in its layout (phase 5)
+    # dense match (phase 3), 100,000-entry serving in its layout or with
+    # normalize=True (phase 5), the standalone filter path (phase 6)
     rec.update(serve_rec)
+    rec.update(filt_rec)
     for k in ("minu_screen", "adc_screen"):
         counts[k] = scale["predecoded"][k]
     for k in ("adc_screen_codes", "adc_rowmax_codes"):
         counts[k] = scale["codes-resident"][k]
+    counts["minu_screen_norm"] = scale["normalize"]["minu_screen_norm"]
+    for k in ("graph_filter_packed", "graph_filter", "graph_filter_infuse"):
+        counts[k] = filt[k]
 
     kernels = []
     for name, (src, line) in KERNEL_META.items():
@@ -759,6 +1182,8 @@ def main() -> int:
             launches=counts[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"]))
+        if name in SHARED_SOURCE:
+            kernels[-1]["shares_source_with"] = SHARED_SOURCE[name]
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ gallery lives on the device as dense padded tensors:
   ``texture_match``; fused score = s0 + s1 + s2 + 0.3 * s_tex
   (matcher.cpp:188/:293), -1 for empty gallery entries (skip semantics of
   matcher.cpp:181-186);
-- serving path: the ``minu_screen`` and ``adc_screen`` (``adc_screen_codes``)
-  kernels screen every entry, a stable top-k keeps the best m per latent,
-  and the dense exact path scores only those.
+- serving path: the ``minu_screen`` (``minu_screen_norm`` with
+  ``normalize=True``) and ``adc_screen`` (``adc_screen_codes``) kernels
+  screen every entry, a stable top-k keeps the best m per latent, and the
+  dense exact path scores only those.
 
 On a CUDA device every step runs the kernels; on the CPU the same wrappers
 run their plain PyTorch versions.
@@ -28,6 +29,7 @@ import torch
 
 from ..templates.data_model import MatcherConstants as MC
 from ..templates.packing import PackedGallery, PackedLatent
+from .graph_filter import coord_pack
 from .kernels import ops
 from .texture_match import decode_pq
 
@@ -97,12 +99,6 @@ class MatchResult:
         if k is not None:
             order = order[:k]
         return [(self.names[i], float(self.scores[i])) for i in order]
-
-
-def coord_pack(xy: torch.Tensor, ori: torch.Tensor) -> torch.Tensor:
-    """[..., 2] coordinates + [...] orientations -> [..., 4] packs."""
-    return torch.stack([xy[..., 0], xy[..., 1], torch.cos(ori),
-                        torch.sin(ori)], dim=-1).contiguous()
 
 
 def _valid(n: torch.Tensor, size: int) -> torch.Tensor:
@@ -315,14 +311,13 @@ class MatchEngine:
                     normalize: bool = False, lt_cap: int = 0,
                     minu_t_cap: int = 0) -> torch.Tensor:
         """Screening scores [NL, G]: sum over templates of ``minu_screen``
-        + 0.3 * ``adc_screen``, -1 for empty entries. With tau = 0 an upper
-        bound on the exact fused score; the bound does not survive the
-        truncation of ``lt_cap`` / ``minu_t_cap`` (``screen_side``). Each
-        kernel launches once per SCREEN_CHUNK entries.
+        + 0.3 * ``adc_screen``, -1 for empty entries. With tau = 0 and
+        normalize False an upper bound on the exact fused score; the bound
+        does not survive the truncation of ``lt_cap`` / ``minu_t_cap``
+        (``screen_side``), and ``normalize=True`` (the mutually normalized
+        minutiae screen, a heuristic) bounds nothing. Each kernel launches
+        once per SCREEN_CHUNK entries.
         """
-        if normalize:
-            raise NotImplementedError(
-                "normalize=True screening is not ported yet (ROADMAP Queue 2)")
         L = self.screen_side(lat, lt_cap, minu_t_cap)
         adc_kernel = ops.adc_screen_codes if gal.codes_resident \
             else ops.adc_screen
@@ -330,7 +325,7 @@ class MatchEngine:
         for a in range(0, gal.size, SCREEN_CHUNK):
             rows = slice(a, a + SCREEN_CHUNK)
             minu, adc = self.screen_args(L, gal, rows)
-            s_minu = ops.minu_screen(**minu)
+            s_minu = ops.minu_screen(normalize=normalize, **minu)
             s_tex = adc_kernel(tau=tau, **adc)
             screen = s_minu.reshape(L["NL"], L["T"], -1).sum(dim=1) \
                 + MC.TEXTURE_SCORE_WEIGHT * s_tex
@@ -368,7 +363,9 @@ class MatchEngine:
         threshold is the best screen outside the kept set (-inf when
         m_pad >= G) and margin the exact 24th score minus it; both are NaN
         whenever ``prescreen_k`` is set, since a truncated screen bounds
-        nothing.
+        nothing. They are numbers with ``normalize=True`` and no prescreen,
+        as in the JAX engine, but certify nothing then: the normalized
+        screen is no upper bound on the exact score.
         """
         B = self.block_size
         lat = self.latent_batch(latents)

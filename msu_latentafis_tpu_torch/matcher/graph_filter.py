@@ -30,6 +30,12 @@ COS_PI_4 = float(np.float32(np.cos(np.pi / 4)))
 COS_PI_6 = float(np.float32(np.cos(np.pi / 6)))
 
 
+def coord_pack(xy: torch.Tensor, ori: torch.Tensor) -> torch.Tensor:
+    """[..., 2] coordinates + [...] orientations -> [..., 4] packs."""
+    return torch.stack([xy[..., 0], xy[..., 1], torch.cos(ori),
+                        torch.sin(ori)], dim=-1).contiguous()
+
+
 def seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum along ``dim`` in index order, one rounding per term."""
     x = x.movedim(dim, 0)
@@ -81,7 +87,10 @@ def build_dist_H(lpack: torch.Tensor, rpack: torch.Tensor,
     else:
         d1 = torch.sqrt(dxl * dxl + dyl * dyl)
         d2 = torch.sqrt(dxr * dxr + dyr * dyr)
-    H = torch.clamp((30.0 - (d1 - d2).abs()) / 25.0, 0.0, 1.0)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # product with its reciprocal, one rounding away from the kernel's x / 25
+    H = torch.clamp((30.0 - (d1 - d2).abs()) / torch.full_like(d1, 25.0),
+                    0.0, 1.0)
     return torch.where(gate, H, torch.zeros_like(H))
 
 
@@ -182,7 +191,8 @@ def filter_correspondences(val: torch.Tensor, li: torch.Tensor,
                            rpack: torch.Tensor, valid: torch.Tensor,
                            lookup: bool, dist_iters: int,
                            tie_keys: Sequence[torch.Tensor] = (),
-                           stats: Optional[dict] = None) -> torch.Tensor:
+                           stats: Optional[dict] = None, stages: int = 6,
+                           stage2_cap: int = 0) -> torch.Tensor:
     """Both filter stages over N correspondence sets -> scores [N].
 
     ``val`` [N, K] similarities, ``li``/``ri`` [N, K] minutia indices,
@@ -191,24 +201,52 @@ def filter_correspondences(val: torch.Tensor, li: torch.Tensor,
     corr2 list is ordered by stage-1 selection rank. ``stats``, when
     given, receives the per-set counts the op-count bound reads
     (``k_valid``, ``n_stage1``).
+
+    ``stages`` < 6 is the JAX package's bench hook (``_filter_body``): the
+    result is a partial sum instead of the score, 0 the I/O floor
+    sum(val * valid) + sum(lx + ly + lc + ls) + sum(rx + ry + rc + rs) +
+    sum(li + ri), 1 sum(H1), 2 sum(S1), 3 the stage-1 survivors'
+    similarities, 4 the number of compatible stage-2 pairs, 5 sum(S2).
+    With 0 < ``stage2_cap`` < K stage 2 keeps only the first stage2_cap
+    stage-1 survivors in rank order; its seed 1 / n2 still counts all.
     """
     N, K = val.shape
+    if stages <= 0:
+        lq = ((lpack[..., 0] + lpack[..., 1]) + lpack[..., 2]) + lpack[..., 3]
+        rq = ((rpack[..., 0] + rpack[..., 1]) + rpack[..., 2]) + rpack[..., 3]
+        return ((seq_sum(val * valid.float(), dim=1) + seq_sum(lq, dim=1))
+                + seq_sum(rq, dim=1)) + seq_sum(li.float() + ri.float(),
+                                                dim=1)
     off = _off_diag(N, K, val.device)
     H1 = build_dist_H(lpack, rpack, valid, lookup)
+    if stages == 1:
+        return seq_sum(seq_sum(H1, dim=2), dim=1)
     S1 = power_iteration(H1, torch.where(valid, val, torch.zeros_like(val)),
                          dist_iters)
+    if stages == 2:
+        return seq_sum(S1, dim=1)
     conflict = (li[:, :, None] == li[:, None, :]) \
         | (ri[:, :, None] == ri[:, None, :])
     sel1 = greedy_one_to_one(S1, (conflict | (H1 < EPS_COMPAT)) & off,
                              valid & (S1 >= THR_DIST), tie_keys)
+    if stages == 3:
+        return seq_sum(torch.where(sel1, val, torch.zeros_like(val)), dim=1)
 
-    H2 = build_angle_H(lpack, rpack, sel1)
     n2 = sel1.sum(dim=1, dtype=torch.float32)
-    b2 = torch.where(sel1, (1.0 / torch.clamp(n2, min=1.0))[:, None],
+    if 0 < stage2_cap < K:
+        sel2_in = sel1 & (torch.cumsum(sel1, dim=1) <= stage2_cap)
+    else:
+        sel2_in = sel1
+    H2 = build_angle_H(lpack, rpack, sel2_in)
+    if stages == 4:
+        return seq_sum(seq_sum(H2.float(), dim=2), dim=1)
+    b2 = torch.where(sel2_in, (1.0 / torch.clamp(n2, min=1.0))[:, None],
                      torch.zeros_like(val))
     S2 = power_iteration(H2.float(), b2, 5)
+    if stages == 5:
+        return seq_sum(S2, dim=1)
     sel2 = greedy_one_to_one(S2, (conflict | ~H2) & off,
-                             sel1 & (S2 >= THR_ANGLE),
+                             sel2_in & (S2 >= THR_ANGLE),
                              (S1,) + tuple(tie_keys))
     if stats is not None:
         stats["k_valid"] = valid.sum(dim=1)

@@ -31,17 +31,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_TIMEOUT_S = 180
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C launcher name -> argument types; every launcher returns cudaError_t.
+# C function name -> argument types; every launcher returns cudaError_t.
 SIGNATURES = {
     "afis_adc_rowmax": [_P] * 7 + [_I] * 5 + [_P],
     "afis_adc_rowmax_codes": [_P] * 8 + [_I] * 7 + [_P],
     "afis_adc_screen": [_P] * 7 + [_I] * 5 + [_F, _P],
     "afis_adc_screen_codes": [_P] * 8 + [_I] * 7 + [_F, _P],
     "afis_minu_screen": [_P] * 5 + [_I] * 5 + [_P],
+    "afis_minu_screen_norm": [_P] * 5 + [_I] * 5 + [_P],
     "afis_texture_match": [_P] * 6 + [_I] * 7 + [_P],
-    "afis_minutiae_match": [_P] * 7 + [_I] * 9 + [_P],
+    "afis_minutiae_match": [_P] * 8 + [_I] * 10 + [_P],
+    "afis_minutiae_match_workspace": [_I] * 5,
+    "afis_minutiae_match_blocks": [_I] * 5,
+    "afis_graph_filter_packed": [_P] * 7 + [_I] * 6 + [_P],
+    "afis_graph_filter_infuse": [_P] * 8 + [_I] * 7 + [_P],
     "afis_error_string": [_I],
 }
+RESTYPES = {"afis_error_string": ctypes.c_char_p,
+            "afis_minutiae_match_workspace": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:
@@ -120,8 +127,7 @@ def load() -> ctypes.CDLL:
     for name, args in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = ctypes.c_char_p if name == "afis_error_string" \
-            else ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

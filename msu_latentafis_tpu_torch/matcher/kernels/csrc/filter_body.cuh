@@ -289,17 +289,63 @@ __device__ inline void greedy(Filter& f, int n) {
   }
 }
 
+// Sum of v(0), ..., v(n - 1) in index order, one rounding per term, in
+// every thread.
+template <class V>
+__device__ float seq_total(Filter& f, int n, const V& v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int i = 0; i < n; ++i) acc = acc + v(i);
+    f.scratch[1] = acc;
+  }
+  __syncthreads();
+  const float total = f.scratch[1];
+  __syncthreads();
+  return total;
+}
+
 // Both stages over the K slots of f (filled, vf = 0 on empty slots, ties
 // set, block synchronized). Returns the score in every thread.
-__device__ inline float filter_run(Filter& f, bool lookup, int dist_iters) {
+//
+// ``stages`` < 6 is the JAX package's bench hook (_filter_body :213-381):
+// it returns a partial sum instead of the score, 0 the I/O floor sum(val *
+// vf) + sum(lx + ly + lc + ls) + sum(rx + ry + rc + rs) + sum(li + ri), 1
+// sum(H1), 2 sum(S1), 3 the stage-1 survivors' similarities, 4 the number
+// of compatible stage-2 pairs, 5 sum(S2). With 0 < stage2_cap < K stage 2
+// runs on the first stage2_cap survivors in rank order (a survivor past
+// the cap is dropped) while its seed 1 / n2 still counts every survivor.
+__device__ inline float filter_run(Filter& f, bool lookup, int dist_iters,
+                                   int stages = 6, int stage2_cap = 0) {
   const int K = f.K;
   const H1Eval H1{f.lx, f.ly, f.rx, f.ry, f.vf, lookup};
+
+  if (stages <= 0) {
+    const float a = seq_total(f, K, [&](int k) {
+      return f.val[k] * (f.vf[k] ? 1.f : 0.f); });
+    const float l = seq_total(f, K, [&](int k) {
+      return ((f.lx[k] + f.ly[k]) + f.lc[k]) + f.ls[k]; });
+    const float r = seq_total(f, K, [&](int k) {
+      return ((f.rx[k] + f.ry[k]) + f.rc[k]) + f.rs[k]; });
+    const float ix = seq_total(f, K, [&](int k) {
+      return (float)f.li[k] + (float)f.ri[k]; });
+    return ((a + l) + r) + ix;
+  }
+  if (stages == 1) {
+    for (int i = threadIdx.x; i < K; i += blockDim.x) {
+      float acc = 0.f;
+      for (int j = 0; j < K; ++j) acc = acc + H1(i, j);
+      f.c[i] = acc;
+    }
+    return seq_total(f, K, [&](int i) { return f.c[i]; });
+  }
 
   // ---- stage 1: distance consistency, support seeded with similarities
   for (int k = threadIdx.x; k < K; k += blockDim.x)
     f.b[k] = f.vf[k] ? f.val[k] : 0.f;
   __syncthreads();
   power_iter(f, K, dist_iters, H1);
+  if (stages == 2) return seq_total(f, K, [&](int k) { return f.b[k]; });
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     f.s1[k] = f.b[k];
     f.elig[k] = f.vf[k] && f.b[k] >= 1e-4f;
@@ -310,15 +356,21 @@ __device__ inline float filter_run(Filter& f, bool lookup, int dist_iters) {
     return f.li[i] == f.li[j] || f.ri[i] == f.ri[j] || H1(i, j) < 1e-5f;
   });
   greedy(f, K);
+  if (stages == 3)
+    return seq_total(f, K, [&](int k) {
+      return bit_of(f.sel, k) ? f.val[k] : 0.f; });
 
-  // ---- compact the stage-1 survivors (rank order kept)
+  // ---- compact the stage-1 survivors (rank order kept), at most
+  // stage2_cap of them when 0 < stage2_cap < K
   const int n2 = scan_count(K, [&](int i) { return bit_of(f.sel, i); },
                             f.pos, f.iscratch);
+  const int nc = (stage2_cap > 0 && stage2_cap < K && n2 > stage2_cap)
+      ? stage2_cap : n2;
   for (int k = threadIdx.x; k < K; k += blockDim.x)
-    if (bit_of(f.sel, k)) f.cidx[f.pos[k]] = k;
+    if (bit_of(f.sel, k) && f.pos[k] < nc) f.cidx[f.pos[k]] = k;
   __syncthreads();
   const float b2 = 1.f / fmaxf((float)n2, 1.f);
-  for (int m = threadIdx.x; m < n2; m += blockDim.x) {
+  for (int m = threadIdx.x; m < nc; m += blockDim.x) {
     const int s = f.cidx[m];
     f.cosv[m] = f.lc[s] * f.rc[s] + f.ls[s] * f.rs[s];
     f.sinv[m] = f.ls[s] * f.rc[s] - f.lc[s] * f.rs[s];
@@ -330,37 +382,36 @@ __device__ inline float filter_run(Filter& f, bool lookup, int dist_iters) {
   __syncthreads();
 
   // ---- stage 2: angle consistency over the survivors, uniform seed
-  const int W2 = (n2 + 31) / 32;
-  for (int a = threadIdx.x; a < n2; a += blockDim.x) {
+  const int W2 = (nc + 31) / 32;
+  for (int a = threadIdx.x; a < nc; a += blockDim.x) {
     for (int w = 0; w < W2; ++w) {
       uint32_t word = 0u;
       for (int bit = 0; bit < 32; ++bit) {
         const int bb = w * 32 + bit;
-        if (bb < n2 && bb != a && angle_ok(f, a, bb)) word |= 1u << bit;
+        if (bb < nc && bb != a && angle_ok(f, a, bb)) word |= 1u << bit;
       }
       f.h2[a * W2 + w] = word;
     }
   }
   __syncthreads();
-  power_iter(f, n2, 5, H2Eval{f.h2, W2});
-  for (int m = threadIdx.x; m < n2; m += blockDim.x) f.elig[m] = f.b[m] >= 1e-3f;
+  if (stages == 4)
+    return seq_total(f, nc, [&](int a) {
+      int n = 0;
+      for (int w = 0; w < W2; ++w) n += __popc(f.h2[a * W2 + w]);
+      return (float)n; });
+  power_iter(f, nc, 5, H2Eval{f.h2, W2});
+  if (stages == 5) return seq_total(f, nc, [&](int m) { return f.b[m]; });
+  for (int m = threadIdx.x; m < nc; m += blockDim.x) f.elig[m] = f.b[m] >= 1e-3f;
   __syncthreads();
   const float* keys2[3] = {f.key0, f.key1, f.key2};
-  build_blockers(f, n2, f.b, keys2, f.ntie + 1, [&](int a, int b) {
+  build_blockers(f, nc, f.b, keys2, f.ntie + 1, [&](int a, int b) {
     const int sa = f.cidx[a], sb = f.cidx[b];
     return f.li[sa] == f.li[sb] || f.ri[sa] == f.ri[sb]
         || !bit_of(f.h2 + a * W2, b);
   });
-  greedy(f, n2);
-
-  if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int m = 0; m < n2; ++m)
-      if (bit_of(f.sel, m)) acc = acc + f.val[f.cidx[m]];
-    f.scratch[1] = acc;
-  }
-  __syncthreads();
-  return f.scratch[1];
+  greedy(f, nc);
+  return seq_total(f, nc, [&](int m) {
+    return bit_of(f.sel, m) ? f.val[f.cidx[m]] : 0.f; });
 }
 
 }  // namespace afis

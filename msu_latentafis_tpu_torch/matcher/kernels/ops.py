@@ -16,9 +16,13 @@ card (``chip_smoke.py`` holds them to rtol 1e-5 / atol 1e-4).
 | texture_match | fused_texture_match :1031 (_make_texture_match_kernel :939) |
 | minutiae_match | fused_minutiae_match :878 (_make_minutiae_match_kernel :682) |
 | minu_screen | fused_minu_screen fast path :1312 (_minu_screen_fast_kernel :1262) |
+| minu_screen_norm | fused_minu_screen normalize=True :1312 (_minu_screen_kernel :1281) |
 | adc_screen | fused_adc_screen :1106 (_adc_augmax_kernel :1080) |
 | adc_screen_codes | fused_adc_screen_codes :1213 (_adc_screen_codes_kernel :1174) |
 | adc_rowmax_codes | fused_adc_rowmax_codes :1434 (_adc_rowmax_codes_kernel :1387) |
+| graph_filter_packed | fused_graph_filter_packed :456 (_filter_body :189) |
+| graph_filter | fused_graph_filter :410 (the same CUDA kernel as graph_filter_packed) |
+| graph_filter_infuse | fused_graph_filter_infuse :551 (_make_filter_gather_kernel :494) |
 
 The ``_codes`` variants take uint8 PQ codes [B, Rt, S] and the codebook
 [S, C, sub_dim] in place of predecoded descriptors; their plain versions
@@ -32,7 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..graph_filter import filter_correspondences, seq_dots, seq_sum
+from ..graph_filter import (coord_pack, filter_correspondences, seq_dots,
+                            seq_sum)
 from ..minutiae_match import (SENT as MINU_SENT, minutiae_similarity,
                               mutual_normalize, row_candidates)
 from ..texture_match import decode_pq
@@ -45,7 +50,9 @@ BISECT_ITERS = 26
 MAX_K = 256              # filter slots a thread block holds (8 mask words)
 
 KERNELS = ("adc_rowmax", "texture_match", "minutiae_match", "minu_screen",
-           "adc_screen", "adc_screen_codes", "adc_rowmax_codes")
+           "adc_screen", "adc_screen_codes", "adc_rowmax_codes",
+           "minu_screen_norm", "graph_filter_packed", "graph_filter",
+           "graph_filter_infuse")
 
 
 def launch_counts() -> dict:
@@ -278,16 +285,7 @@ def minu_screen_plain(ldes, lvalid, rdes, rvalid):
     return torch.minimum(rb, cb)
 
 
-def minu_screen(ldes: torch.Tensor, lvalid: torch.Tensor, rdes: torch.Tensor,
-                rvalid: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-    """Minutiae screening score [NT, B] (an upper bound on the exact
-    minutiae-template score).
-
-    ldes [NT, P, D], lvalid [NT, P] f32; rdes [B, R, D], rvalid [B, R] f32.
-    """
-    if normalize:
-        raise NotImplementedError(
-            "minu_screen(normalize=True) is not ported yet (ROADMAP Queue 2)")
+def _minu_screen_args(ldes, lvalid, rdes, rvalid):
     NT, P, D = ldes.shape
     B, R, _ = rdes.shape
     dev = ldes.device
@@ -296,9 +294,23 @@ def minu_screen(ldes: torch.Tensor, lvalid: torch.Tensor, rdes: torch.Tensor,
     _check("lvalid", lvalid, (NT, P), f32, dev)
     _check("rdes", rdes, (B, R, D), f32, dev)
     _check("rvalid", rvalid, (B, R), f32, dev)
+    return NT, P, D, B, R, dev
+
+
+def minu_screen(ldes: torch.Tensor, lvalid: torch.Tensor, rdes: torch.Tensor,
+                rvalid: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    """Minutiae screening score [NT, B]: an upper bound on the exact
+    minutiae-template score, or with ``normalize`` the mutually normalized
+    heuristic of ``minu_screen_norm``.
+
+    ldes [NT, P, D], lvalid [NT, P] f32; rdes [B, R, D], rvalid [B, R] f32.
+    """
+    if normalize:
+        return minu_screen_norm(ldes, lvalid, rdes, rvalid)
+    NT, P, D, B, R, dev = _minu_screen_args(ldes, lvalid, rdes, rvalid)
     if not _is_cuda(dev):
         return minu_screen_plain(ldes, lvalid, rdes, rvalid)
-    out = torch.empty((NT, B), dtype=f32, device=dev)
+    out = torch.empty((NT, B), dtype=torch.float32, device=dev)
     lib = _build.load()
     err = lib.afis_minu_screen(
         *(t.data_ptr() for t in (ldes, lvalid, rdes, rvalid, out)),
@@ -309,6 +321,232 @@ def minu_screen(ldes: torch.Tensor, lvalid: torch.Tensor, rdes: torch.Tensor,
 
 
 minu_screen.launches = 0
+
+
+def minu_screen_norm_plain(ldes, lvalid, rdes, rvalid):
+    """min(sum_p max_r n, sum_r max_p n) of the mutually normalized
+    n = ((s / (((row + col) - s) + 1e-6)) * lv) * rv, s = (relu(ldes .
+    rdes) * lv) * rv, row / col its sums; every sum in index order. The
+    descriptors are not zeroed before the product."""
+    lv = lvalid[:, None, :, None]
+    rv = rvalid[None, :, None, :]
+    s = (torch.clamp(seq_dots(ldes, rdes), min=0.0) * lv) * rv
+    row = seq_sum(s, dim=-1)[..., :, None]
+    col = seq_sum(s, dim=-2)[..., None, :]
+    n = ((s / (((row + col) - s) + 1e-6)) * lv) * rv
+    return torch.minimum(seq_sum(n.max(dim=-1).values, dim=-1),
+                         seq_sum(n.max(dim=-2).values, dim=-1))
+
+
+def minu_screen_norm(ldes: torch.Tensor, lvalid: torch.Tensor,
+                     rdes: torch.Tensor, rvalid: torch.Tensor) -> torch.Tensor:
+    """Mutually normalized minutiae screen [NT, B] (``fused_minu_screen``
+    with normalize=True): the quantity the top-120 selection ranks by, a
+    correlation heuristic and not a bound on the exact score. Shapes as
+    ``minu_screen``."""
+    NT, P, D, B, R, dev = _minu_screen_args(ldes, lvalid, rdes, rvalid)
+    if not _is_cuda(dev):
+        return minu_screen_norm_plain(ldes, lvalid, rdes, rvalid)
+    out = torch.empty((NT, B), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    err = lib.afis_minu_screen_norm(
+        *(t.data_ptr() for t in (ldes, lvalid, rdes, rvalid, out)),
+        NT, P, B, R, D, _stream(dev))
+    _build.check(err, "minu_screen_norm")
+    minu_screen_norm.launches += 1
+    return out
+
+
+minu_screen_norm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# standalone graph filter
+# ---------------------------------------------------------------------------
+
+def graph_filter_packed_plain(val, gl, gr, li, ri, valid, lookup=False,
+                              dist_iters=5, stages=6, stage2_cap=0,
+                              stats: Optional[dict] = None):
+    """``filter_correspondences`` with no tie keys (slot order breaks
+    support ties)."""
+    return filter_correspondences(val, li, ri, gl, gr, valid, lookup,
+                                  dist_iters, (), stats, stages, stage2_cap)
+
+
+def _filter_set_args(val, li, ri, valid, N, K, dev):
+    _check("val", val, (N, K), torch.float32, dev)
+    _check("li", li, (N, K), torch.int32, dev)
+    _check("ri", ri, (N, K), torch.int32, dev)
+    _check("valid", valid, (N, K), torch.bool, dev)
+
+
+def _launch_graph_filter(val, gl, gr, li, ri, valid, lookup, dist_iters,
+                         stages, stage2_cap, what) -> torch.Tensor:
+    N, K = val.shape
+    if K > MAX_K:
+        raise ValueError(f"{what}: K={K} > {MAX_K}")
+    out = torch.empty((N,), dtype=torch.float32, device=val.device)
+    lib = _build.load()
+    err = lib.afis_graph_filter_packed(
+        *(t.data_ptr() for t in (val, gl, gr, li, ri, valid, out)),
+        N, K, int(lookup), dist_iters, stages, stage2_cap,
+        _stream(val.device))
+    _build.check(err, what)
+    return out
+
+
+def graph_filter_packed(val: torch.Tensor, gl: torch.Tensor,
+                        gr: torch.Tensor, li: torch.Tensor, ri: torch.Tensor,
+                        valid: torch.Tensor, lookup: bool, dist_iters: int,
+                        stages: int = 6, stage2_cap: int = 0) -> torch.Tensor:
+    """Both graph-filter stages over N pre-gathered correspondence sets ->
+    scores [N] (``fused_graph_filter_packed``).
+
+    val [N, K] f32; gl / gr [N, K, 4] f32 = (x, y, cos ori, sin ori) at the
+    slots; li / ri [N, K] int32; valid [N, K] bool. ``stages`` and
+    ``stage2_cap`` are the bench hooks of ``filter_correspondences``.
+    """
+    N, K = val.shape
+    dev = val.device
+    _filter_set_args(val, li, ri, valid, N, K, dev)
+    _check("gl", gl, (N, K, 4), torch.float32, dev)
+    _check("gr", gr, (N, K, 4), torch.float32, dev)
+    if stage2_cap < 0:
+        raise ValueError("stage2_cap must be >= 0")
+    if not _is_cuda(dev):
+        return graph_filter_packed_plain(val, gl, gr, li, ri, valid, lookup,
+                                         dist_iters, stages, stage2_cap)
+    out = _launch_graph_filter(val, gl, gr, li, ri, valid, lookup,
+                               dist_iters, stages, stage2_cap,
+                               "graph_filter_packed")
+    graph_filter_packed.launches += 1
+    return out
+
+
+graph_filter_packed.launches = 0
+
+
+def graph_filter_plain(val, lxy, lori, rxy, rori, li, ri, valid,
+                       lookup=False, dist_iters=5,
+                       stats: Optional[dict] = None):
+    gl, gr = coord_pack(lxy, lori), coord_pack(rxy, rori)
+    return graph_filter_packed_plain(val, gl, gr, li, ri, valid, lookup,
+                                     dist_iters, stats=stats)
+
+
+def graph_filter(val: torch.Tensor, lxy: torch.Tensor, lori: torch.Tensor,
+                 rxy: torch.Tensor, rori: torch.Tensor, li: torch.Tensor,
+                 ri: torch.Tensor, valid: torch.Tensor, lookup: bool,
+                 dist_iters: int) -> torch.Tensor:
+    """``graph_filter_packed`` from coordinates lxy / rxy [N, K, 2] and
+    orientations lori / rori [N, K] f32 (``fused_graph_filter``): the
+    cos / sin packs are built with torch ops, as the JAX function builds
+    them outside its kernel, and the same CUDA kernel runs."""
+    N, K = val.shape
+    dev = val.device
+    _filter_set_args(val, li, ri, valid, N, K, dev)
+    for name, t, shape in (("lxy", lxy, (N, K, 2)), ("lori", lori, (N, K)),
+                           ("rxy", rxy, (N, K, 2)), ("rori", rori, (N, K))):
+        _check(name, t, shape, torch.float32, dev)
+    if not _is_cuda(dev):
+        return graph_filter_plain(val, lxy, lori, rxy, rori, li, ri, valid,
+                                  lookup, dist_iters)
+    gl, gr = coord_pack(lxy, lori), coord_pack(rxy, rori)
+    out = _launch_graph_filter(val, gl, gr, li, ri, valid, lookup,
+                               dist_iters, 6, 0, "graph_filter")
+    graph_filter.launches += 1
+    return out
+
+
+graph_filter.launches = 0
+
+
+def infuse_gather(li, ri, lpackT, rpackT, simi=None):
+    """The slot operands of ``graph_filter_infuse``: packs gl / gr
+    [NT, B, K, 4] gathered from the [NT, 4, P] / [B, 4, R] planes and, with
+    ``simi`` [NT, B, P, R], the weights simi[t, b, li, ri]. An index outside
+    [0, P) or [0, R) gathers zeros, as the TPU kernel's one-hot rows do."""
+    NT, B, K = li.shape
+    P, R = lpackT.shape[2], rpackT.shape[2]
+    dev = li.device
+    lin = (li >= 0) & (li < P)
+    rin = (ri >= 0) & (ri < R)
+    lic = torch.where(lin, li, 0).long()
+    ric = torch.where(rin, ri, 0).long()
+    t_of = torch.arange(NT, device=dev)[:, None, None]
+    b_of = torch.arange(B, device=dev)[None, :, None]
+    gl = lpackT.transpose(1, 2)[t_of, lic]
+    gr = rpackT.transpose(1, 2)[b_of, ric]
+    gl = torch.where(lin[..., None], gl, torch.zeros_like(gl))
+    gr = torch.where(rin[..., None], gr, torch.zeros_like(gr))
+    val = None
+    if simi is not None:
+        val = simi[t_of, b_of, lic, ric]
+        val = torch.where(lin & rin, val, torch.zeros_like(val))
+    return gl, gr, val
+
+
+def graph_filter_infuse_plain(val, li, ri, valid, lpackT, rpackT,
+                              lookup=False, dist_iters=5, simi=None,
+                              stats: Optional[dict] = None):
+    NT, B, K = li.shape
+    gl, gr, sval = infuse_gather(li, ri, lpackT, rpackT, simi)
+    if simi is not None:
+        val = sval
+    return graph_filter_packed_plain(
+        val.reshape(NT * B, K), gl.reshape(NT * B, K, 4),
+        gr.reshape(NT * B, K, 4), li.reshape(NT * B, K),
+        ri.reshape(NT * B, K), valid.reshape(NT * B, K), lookup,
+        dist_iters, stats=stats).reshape(NT, B)
+
+
+def graph_filter_infuse(val: Optional[torch.Tensor], li: torch.Tensor,
+                        ri: torch.Tensor, valid: torch.Tensor,
+                        lpackT: torch.Tensor, rpackT: torch.Tensor,
+                        lookup: bool, dist_iters: int,
+                        simi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Graph filter over an [NT, B] grid of correspondence sets with the
+    operand gathers inside the kernel (``fused_graph_filter_infuse``).
+
+    val [NT, B, K] f32, or None with ``simi`` [NT, B, P, R] f32 given (the
+    weights are then simi[t, b, li, ri]); li / ri [NT, B, K] int32; valid
+    [NT, B, K] bool; lpackT [NT, 4, P] / rpackT [B, 4, R] coordinate planes
+    (x, y, cos ori, sin ori). Returns [NT, B] f32.
+    """
+    NT, B, K = li.shape
+    P, R = lpackT.shape[2], rpackT.shape[2]
+    dev = li.device
+    f32 = torch.float32
+    if (val is None) == (simi is None):
+        raise ValueError("graph_filter_infuse takes exactly one of val and "
+                         "simi")
+    if val is not None:
+        _check("val", val, (NT, B, K), f32, dev)
+    else:
+        _check("simi", simi, (NT, B, P, R), f32, dev)
+    _check("li", li, (NT, B, K), torch.int32, dev)
+    _check("ri", ri, (NT, B, K), torch.int32, dev)
+    _check("valid", valid, (NT, B, K), torch.bool, dev)
+    _check("lpackT", lpackT, (NT, 4, P), f32, dev)
+    _check("rpackT", rpackT, (B, 4, R), f32, dev)
+    if not _is_cuda(dev):
+        return graph_filter_infuse_plain(val, li, ri, valid, lpackT, rpackT,
+                                         lookup, dist_iters, simi)
+    if K > MAX_K:
+        raise ValueError(f"graph_filter_infuse: K={K} > {MAX_K}")
+    out = torch.empty((NT, B), dtype=f32, device=dev)
+    lib = _build.load()
+    err = lib.afis_graph_filter_infuse(
+        None if val is None else val.data_ptr(),
+        *(t.data_ptr() for t in (li, ri, valid, lpackT, rpackT)),
+        None if simi is None else simi.data_ptr(), out.data_ptr(),
+        NT, B, K, P, R, int(lookup), dist_iters, _stream(dev))
+    _build.check(err, "graph_filter_infuse")
+    graph_filter_infuse.launches += 1
+    return out
+
+
+graph_filter_infuse.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -502,11 +740,25 @@ def minutiae_match(ldes: torch.Tensor, lvalid: torch.Tensor,
                                     top_n, row_cap, lookup, dist_iters)
     if K > MAX_K:
         raise ValueError(f"minutiae_match: K={K} > {MAX_K}")
-    out = torch.empty((NT, B), dtype=f32, device=dev)
     lib = _build.load()
+    # a pair too large for shared memory keeps its matrices in a global
+    # workspace: one slice per block the card runs at once
+    words = lib.afis_minutiae_match_workspace(P, R, D, K, row_cap)
+    if words < 0:
+        raise ValueError(f"minutiae_match: no launch takes P={P} R={R} D={D} "
+                         f"K={K} row_cap={row_cap}")
+    ws, nblk = None, 0
+    if words:
+        nblk = min(NT * B, lib.afis_minutiae_match_blocks(P, R, D, K,
+                                                          row_cap))
+        if nblk <= 0:
+            raise RuntimeError("minutiae_match: no block fits on the card")
+        ws = torch.empty((nblk * words,), dtype=f32, device=dev)
+    out = torch.empty((NT, B), dtype=f32, device=dev)
     err = lib.afis_minutiae_match(
         *(t.data_ptr() for t in (ldes, lvalid, rdes, rvalid, lpack, rpack,
                                  out)),
+        None if ws is None else ws.data_ptr(), nblk,
         NT, P, B, R, D, K, row_cap, int(lookup), dist_iters, _stream(dev))
     _build.check(err, "minutiae_match")
     minutiae_match.launches += 1

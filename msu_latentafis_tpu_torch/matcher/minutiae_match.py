@@ -10,7 +10,9 @@ is the exact top-K whenever no latent row holds more than ``row_cap`` of
 it (``row_cap = R`` is always exact).
 
 Sums run in index order (see ``graph_filter.seq_sum``) so that the CUDA
-kernel reproduces these functions bit for bit.
+kernel reproduces these functions bit for bit. ``minutiae_correspondences``
+and ``minutiae_correspondence_indices`` are the exact top-N selection of
+the JAX package's XLA path, which feeds ``graph_filter_infuse``.
 """
 from __future__ import annotations
 
@@ -40,6 +42,49 @@ def mutual_normalize(simi: torch.Tensor) -> torch.Tensor:
     row = seq_sum(simi, dim=-1)
     col = seq_sum(simi, dim=-2)
     return simi / (row[..., :, None] + col[..., None, :] - simi + 1e-6)
+
+
+def _top_corr(simi, lat_valid, rol_valid, top_n):
+    """Exact top-N of the mutually normalized similarity over the flat
+    [.., P * R] axis, invalid pairs -inf: a stable descending sort, so a
+    lower flat index comes first on ties (``jax.lax.top_k`` off the TPU).
+    Returns (value, flat index), each [.., k]."""
+    P, R = simi.shape[-2:]
+    pair = lat_valid[..., :, None] & rol_valid[..., None, :]
+    norm = torch.where(pair, mutual_normalize(simi),
+                       torch.full_like(simi, -float("inf")))
+    k = min(top_n, P * R)
+    v, i = torch.sort(norm.reshape(norm.shape[:-2] + (P * R,)), dim=-1,
+                      descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def minutiae_correspondences(simi: torch.Tensor, lat_valid: torch.Tensor,
+                             rol_valid: torch.Tensor, top_n: int = 120):
+    """Top-N correspondences of one [P, R] similarity matrix by mutually
+    normalized similarity (lat_valid [P], rol_valid [R] bool). Returns
+    (val, li, ri, valid) [k]: the raw similarities at the selected pairs,
+    their latent / rolled minutia indices (int32) and whether the pair is
+    valid. The JAX package's ``approx_max_k`` option is a TPU approximation
+    and is not ported."""
+    R = simi.shape[-1]
+    topv, topi = _top_corr(simi, lat_valid, rol_valid, top_n)
+    return (simi.reshape(-1)[topi], (topi // R).int(), (topi % R).int(),
+            topv > -float("inf"))
+
+
+def minutiae_correspondence_indices(simi: torch.Tensor,
+                                    lat_valid: torch.Tensor,
+                                    rol_valid: torch.Tensor,
+                                    top_n: int = 120):
+    """``minutiae_correspondences`` over the batched similarity
+    simi [NT, B, P, R] (lat_valid [NT, P], rol_valid [B, R] bool), indices
+    only: (li, ri, valid) [NT, B, k]. The weights are recovered by
+    ``kernels.ops.graph_filter_infuse(simi=...)``."""
+    R = simi.shape[-1]
+    topv, topi = _top_corr(simi, lat_valid[:, None], rol_valid[None],
+                           top_n)
+    return (topi // R).int(), (topi % R).int(), topv > -float("inf")
 
 
 def row_candidates(normm: torch.Tensor, simi: torch.Tensor, row_cap: int):

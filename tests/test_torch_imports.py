@@ -68,5 +68,6 @@ def test_kernels_build_only_with_nvcc():
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert {s.name for s in _build.sources()} == {
         "adc_rowmax.cu", "adc_screen.cu", "minu_screen.cu",
-        "texture_match.cu", "minutiae_match.cu"}
+        "minu_screen_norm.cu", "texture_match.cu", "minutiae_match.cu",
+        "graph_filter.cu", "graph_filter_infuse.cu"}
     assert _build.library_path().parent == _build.BUILD_DIR

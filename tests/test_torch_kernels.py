@@ -278,3 +278,27 @@ def test_minutiae_match_single_matches_jax(rng):
                       jnp.asarray(rv[0] > 0.5))
     np.testing.assert_allclose(float(got), float(want), **TOL)
     assert float(got) > 1.0
+
+
+def test_large_print_plain_versions_match_pallas(rng):
+    """A rolled print of 512 minutiae (past the old shared-memory envelope
+    of the CUDA kernels): the plain minutiae match and both plain screens
+    against the Pallas kernels in interpret mode."""
+    NT, B, P, R, D = 1, 2, 16, 512, 16
+    ld, lv, rd, rv, lp, rp = _minutiae_inputs(rng, NT, B, P, R, D)
+    jl, jlv = jnp.asarray(ld), jnp.asarray(lv)
+    jr, jrv = jnp.asarray(np.swapaxes(rd, 1, 2)), jnp.asarray(rv)
+    want = pk.fused_minutiae_match(
+        jl, jlv, jr, jrv, jnp.asarray(np.swapaxes(lp, 1, 2)),
+        jnp.asarray(np.swapaxes(rp, 1, 2)), top_n=120, row_cap=8, tile_b=2,
+        interpret=True)
+    got = ops.minutiae_match(T(ld), T(lv), T(rd), T(rv), T(lp), T(rp),
+                             top_n=120, row_cap=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert float(got[0, 0]) > 1.0
+    for normalize in (False, True):
+        want = pk.fused_minu_screen(jl, jlv, jr, jrv, normalize=normalize,
+                                    interpret=True)
+        got = ops.minu_screen(T(ld), T(lv), T(rd), T(rv),
+                              normalize=normalize)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

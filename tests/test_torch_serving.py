@@ -56,9 +56,16 @@ def test_minu_screen_matches_pallas(rng):
         interpret=True)
     got = ops.minu_screen(T(lat), T(lval), T(rol), T(rval))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError):
-        ops.minu_screen(T(lat), T(lval), T(rol), T(rval), normalize=True)
+    want_n = pk.fused_minu_screen(
+        jnp.asarray(lat), jnp.asarray(lval),
+        jnp.asarray(np.swapaxes(rol, 1, 2)), jnp.asarray(rval),
+        normalize=True, interpret=True)
+    got_n = ops.minu_screen(T(lat), T(lval), T(rol), T(rval), normalize=True)
+    np.testing.assert_allclose(got_n.numpy(), np.asarray(want_n), **TOL)
+    assert torch.equal(got_n, ops.minu_screen_norm_plain(T(lat), T(lval),
+                                                         T(rol), T(rval)))
     assert ops.minu_screen.launches == 0          # CPU tensors: plain path
+    assert ops.minu_screen_norm.launches == 0
 
 
 def _adc_inputs(rng, NL=2, Lt=16, D=8, B=4, Rt=24):
@@ -175,8 +182,12 @@ def test_screen_scores_match_jax(serving):
     got = s["te"].screen_scores_batch(s["pls"], s["tgal"]).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     assert [int(np.argmax(r)) for r in got] == list(MATES)
-    with pytest.raises(NotImplementedError):
-        s["te"].screen_scores_batch(s["pls"], s["tgal"], normalize=True)
+    want_n = np.asarray(s["je"].screen_scores_batch(s["pls"], s["jgal"],
+                                                    normalize=True))
+    got_n = s["te"].screen_scores_batch(s["pls"], s["tgal"],
+                                        normalize=True).numpy()
+    np.testing.assert_allclose(got_n, want_n, **TOL)
+    assert not np.array_equal(got_n, got)
 
 
 def test_screen_upper_bounds_exact(serving):
@@ -209,6 +220,22 @@ def test_reranked_matches_jax(serving, case):
     assert np.isnan(got[2]).all() == ("prescreen_k" in kw)
     for i, pos in enumerate(MATES):
         assert got[0][i, np.argmax(got[1][i])] == pos
+
+
+@pytest.mark.parametrize("case", sorted(RERANK_CASES))
+def test_reranked_normalize_matches_jax(serving, case):
+    """normalize=True serving against the JAX engine's fused serving
+    program: the same kept indices, exact scores within TOL, margins and
+    thresholds equal within TOL (numbers without prescreen, though the
+    normalized screen certifies nothing) or both NaN (prescreen)."""
+    s, kw = serving, RERANK_CASES[case]
+    want = s["je"].match_scores_batch_reranked(
+        s["pls"], s["jgal"], split_serving=False, normalize=True, **kw)
+    got = s["te"].match_scores_batch_reranked(s["pls"], s["tgal"],
+                                              normalize=True, **kw)
+    _assert_serving_equal(got, want)
+    assert np.isnan(got[2]).all() == ("prescreen_k" in kw)
+    assert np.isfinite(got[2]).all() == ("prescreen_k" not in kw)
 
 
 def test_rerank_ties_at_the_cut():
@@ -264,8 +291,9 @@ def test_codes_resident_equals_predecoded(serving):
 
 
 def test_codes_resident_rule():
-    """None follows the JAX budget rule, counted on f32 bytes: at Rt 448 /
-    D 96 the last predecoded padded size is 52,288 entries."""
+    """None predecodes a gallery in host memory while its f32 texture (4
+    bytes per element) stays under the 9e9-byte budget: at Rt 448 / D 96
+    the last predecoded padded size is 52,288 entries."""
     cb = random_codebook(np.random.default_rng(0))
     e = MatchEngine(cb, device="cpu")
     assert e.should_predecode(52288, 448) and not e.should_predecode(52352,
