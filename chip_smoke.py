@@ -18,8 +18,10 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      the large-print block: minutiae_match and both screens at P 128 /
      R 1000 (the reference's largest rolled print) and P 256 / R 96;
   2. the CLI: a 64-file synthetic .dat gallery with one planted mate and
-     one rolled print of 1,000 minutiae, ``cli.main(["match", ...])`` dense
-     and with ``--rerank 16``, the mate must be rank 1 in the CSV;
+     one rolled print of 1,000 minutiae, ``cli.main(["match", ...])`` dense,
+     with ``--rerank 16``, and through ``--config`` with ComputeDtype
+     "bfloat16" (the codebook and score paths from the config), the mate
+     must be rank 1 in the CSV;
   3. the dense engine on a 16,384-entry gallery built on the card from a
      seed, 4 latents with planted mates through ``match_scores_batch``:
      every mate at rank 1, every dense kernel launched; then the three
@@ -50,7 +52,30 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      and the infuse filter at NT 24 x B 512 x P 64 x R 96 with val and with
      simi; each held against its plain version (stages 0-5 on a slice of
      sets); then infuse after the port's exact selection against
-     minutiae_match at row_cap = R on one block.
+     minutiae_match at row_cap = R on one block;
+  7. the throughput modes, dense: phase 3's gallery (the same seed, so the
+     same f32 values) and latents in bf16, bf16 + tex_int8 and bf16 +
+     minu_int8: mates at rank 1 in every mode, the mates' scores within
+     tests/test_int8_mode.py's tolerances of bf16 and f32, minu_int8's
+     impostors under a tenth of the mate; the scores outside rtol 0.05 /
+     atol 0.3 of the reference counted and printed; then the typed dense
+     kernels held and timed as this path launches them;
+  8. the throughput modes, serving: bf16 + tex_int8 predecoded on phase 5's
+     100,000-entry gallery and latents at the JAX bench's code defaults
+     (m 256, prescreen 256 / 64 / 1): mates at rank 1, kept exact scores
+     equal to the mode's dense scores, steady latents/s, a profiler
+     breakdown; the typed screens held per chunk; normalize=True serving in
+     the same mode and its screen held;
+  9. the reference-cap shape (Lm = Rm = 128, Lt = Rt = 1000) codes-resident
+     with minu_int8 in bf16, the JAX bench's headline mode, serving 8
+     latents at m 256 / prescreen 256 / 64 / 1 over 16,384 entries (not
+     100,000: the cap shape has about 5x the 448 shape's screen work):
+     mates at rank 1, latents/s, profile; the typed codes kernels held;
+  10. the ported scripts' kernels: exp_screen_mfu's five variants at its
+     shapes (NL 8, Lt 448, Rt 448, D 96, B 4096), the H1 probe's three
+     variants (matmul must equal bcast), the launch-legality canary (a
+     legal plan copies, a plan above the card's shared memory or thread
+     limit must raise); each kernel held against its plain version.
 The kernels' JSON record takes each kernel's launches from the path that
 runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 6) and its numbers from the same path's shapes and data: means per launch
@@ -72,7 +97,7 @@ import tempfile
 import time
 import warnings
 
-WATCHDOG_S = 300             # a hang ends as a traceback and a nonzero exit
+WATCHDOG_S = 600             # a hang ends as a traceback and a nonzero exit
 GALLERY_G = 16384            # the profile gallery size (docs/PERF.md:5-8)
 N_LATENTS = 4
 SERVE_G = 100000             # the JAX bench's gallery, latents and
@@ -80,23 +105,37 @@ SERVE_LATENTS = 8            # prescreen (bench.py:10,120-126); m 512 is
 # its docstring's rerank size (:12), while its code defaults BENCH_RERANK
 # to 256 (:188); m 512 keeps these numbers comparable with earlier runs
 SERVE = dict(m=512, prescreen_k=256, prescreen_lt=64, prescreen_t=1)
+# the JAX bench's code defaults: BENCH_RERANK 256, prescreen 256 / 64 / 1
+# (bench.py:188,137-139)
+SERVE_BENCH = dict(m=256, prescreen_k=256, prescreen_lt=64, prescreen_t=1)
+CAP = dict(Lm=128, Rm=128, Lt=1000, Rt=1000)   # matcher.h:31-32 capacities
+CAP_G = 16384
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
+PEAK_INT8_OPS = 1979e12      # H100 SXM int8 tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL = dict(rtol=1e-5, atol=1e-4)
 HERE = os.path.dirname(os.path.abspath(__file__))
-# kernel -> (source in csrc/, line of the TPU kernel in pallas_kernels.py)
+PALLAS = "msu_latentafis_tpu/matcher/pallas_kernels.py"
+# kernel -> (source in csrc/, the TPU kernel it replaces as file:line); a
+# typed entry "name[types]" shares its kernel's row
 KERNEL_META = {
-    "adc_rowmax": ("adc_rowmax.cu", 1489),
-    "texture_match": ("texture_match.cu", 1031),
-    "minutiae_match": ("minutiae_match.cu", 878),
-    "minu_screen": ("minu_screen.cu", 1312),
-    "adc_screen": ("adc_screen.cu", 1106),
-    "adc_screen_codes": ("adc_screen.cu", 1213),
-    "adc_rowmax_codes": ("adc_rowmax.cu", 1434),
-    "minu_screen_norm": ("minu_screen_norm.cu", 1370),
-    "graph_filter_packed": ("graph_filter.cu", 456),
-    "graph_filter": ("graph_filter.cu", 410),
-    "graph_filter_infuse": ("graph_filter_infuse.cu", 551),
+    "adc_rowmax": ("adc_rowmax.cu", f"{PALLAS}:1489"),
+    "texture_match": ("texture_match.cu", f"{PALLAS}:1031"),
+    "minutiae_match": ("minutiae_match.cu", f"{PALLAS}:878"),
+    "minu_screen": ("minu_screen.cu", f"{PALLAS}:1312"),
+    "adc_screen": ("adc_screen.cu", f"{PALLAS}:1106"),
+    "adc_screen_codes": ("adc_screen.cu", f"{PALLAS}:1213"),
+    "adc_rowmax_codes": ("adc_rowmax.cu", f"{PALLAS}:1434"),
+    "minu_screen_norm": ("minu_screen_norm.cu", f"{PALLAS}:1370"),
+    "graph_filter_packed": ("graph_filter.cu", f"{PALLAS}:456"),
+    "graph_filter": ("graph_filter.cu", f"{PALLAS}:410"),
+    "graph_filter_infuse": ("graph_filter_infuse.cu", f"{PALLAS}:551"),
+    "screen_t_bf16": ("screen_t.cu", "scripts/exp_screen_mfu.py:154"),
+    "screen_t_int8": ("screen_t.cu", "scripts/exp_screen_mfu.py:124"),
+    "h1_probe": ("h1_probe.cu", "scripts/microbench_h1_probe.py:98"),
+    "legality_canary": ("legality_canary.cu",
+                        "tests/test_mosaic_legality.py:44"),
 }
 # graph_filter launches graph_filter_packed's kernel after building the
 # cos / sin packs, as fused_graph_filter wraps the same Pallas body
@@ -145,27 +184,53 @@ def filter_ops(k_valid, n_stage1, dist_iters: int) -> float:
                   + n * n * (40.0 + 10.0 + 6.0)).sum())
 
 
-def bound(ops: float, nbytes: float):
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(ops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """The least time (ms) for ``ops`` operations at ``peak`` and ``nbytes``
+    at the memory rate, and which of the two bounds it."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def peak_of(t) -> float:
+    """The card's peak rate for a kernel whose latent operand is ``t``:
+    the bf16 tensor-core peak for a bf16 operand, else the f32 rate."""
+    import torch
+    return PEAK_BF16_FLOPS if t.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+
+def tag(name: str, *ts) -> str:
+    """``name[types]`` of a typed kernel's launch, e.g. adc_rowmax[bf16,int8];
+    the f32 kernels keep their plain names."""
+    import torch
+    short = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
+    types = [short[t.dtype] for t in ts]
+    return name if set(types) == {"f32"} else f"{name}[{','.join(types)}]"
+
+
+def lib_cast(a, b):
+    """Library operands: b in a's type (an int8 gallery side cast to the
+    latent's bf16 or f32, as the TPU kernels cast it)."""
+    return a, b.to(a.dtype)
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def make_latents(rng, n: int, cb):
+def make_latents(rng, n: int, cb, Lm=64, Lt=448, Rm=96, Rt=448):
+    """n latents with planted mates at one shape (the 448 shape unless
+    told): packed latents and the packed mates."""
     from msu_latentafis_tpu_torch.templates import pack_gallery, pack_latent
     from msu_latentafis_tpu_torch.utils.synthetic import (
         make_latent_template, make_rolled_template)
-    lats = [make_latent_template(rng, n_minu=64, n_tex=448) for _ in range(n)]
-    mates = [make_rolled_template(rng, n_minu=96, n_tex=448,
+    lats = [make_latent_template(rng, n_minu=Lm, n_tex=Lt) for _ in range(n)]
+    mates = [make_rolled_template(rng, n_minu=Rm, n_tex=Rt,
                                   mated_latent=l, codebook=cb) for l in lats]
-    packed = [pack_latent(l, minu_cap=64, tex_cap=448, quantize_tex_xy=False)
+    packed = [pack_latent(l, minu_cap=Lm, tex_cap=Lt, quantize_tex_xy=False)
               for l in lats]
     pmates = pack_gallery(mates, cb, names=[f"mate{i}" for i in range(n)],
-                          minu_cap=96, tex_cap=448)
+                          minu_cap=Rm, tex_cap=Rt)
     return packed, pmates
 
 
@@ -192,21 +257,24 @@ def by_entries(fn, args: dict, step: int):
 
 def minu_library(ldes, lvalid, rdes, rvalid):
     import torch
-    g = torch.matmul((ldes * lvalid[..., None])[:, None],
-                     (rdes * rvalid[..., None]).transpose(1, 2)[None])
+    ldes, rdes = lib_cast(ldes, rdes)
+    g = torch.matmul((ldes * lvalid[..., None].to(ldes.dtype))[:, None],
+                     (rdes * rvalid[..., None].to(rdes.dtype))
+                     .transpose(1, 2)[None]).float()
     return torch.minimum(g.amax(-1).clamp(min=0.0).sum(-1),
                          g.amax(-2).clamp(min=0.0).sum(-1))
 
 
 def screen_library(x, lsq, lvalid, rsq, rvalid, dec=None, codes=None,
-                   codebook=None):
+                   codebook=None, block=0):
     import torch
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     from msu_latentafis_tpu_torch.matcher.texture_match import decode_pq
     if dec is None:
         dec = decode_pq(codes, codebook)
+    x, dec = lib_cast(x, dec)
     mask = torch.where(rvalid > 0, 0.0, ops.SCREEN_SENT)
-    v = torch.matmul(x[:, None], dec.transpose(1, 2)[None]) \
+    v = torch.matmul(x[:, None], dec.transpose(1, 2)[None]).float() \
         + (-(0.5 * rsq) + mask)[None, :, None, :]
     return ((2.0 * v.amax(-1) + (6.0 - lsq)[:, None, :]).clamp(min=0.0)
             * lvalid[:, None, :]).sum(-1)
@@ -217,15 +285,17 @@ def rowmax_library(x, lsq, rsq, rvalid, dec=None, codes=None, codebook=None):
     from msu_latentafis_tpu_torch.matcher.texture_match import decode_pq
     if dec is None:
         dec = decode_pq(codes, codebook)
-    simi = 2.0 * torch.matmul(x[:, None], dec.transpose(1, 2)[None]) + (
-        (6.0 - lsq)[:, None, :, None] - rsq[None, :, None, :])
+    x, dec = lib_cast(x, dec)
+    simi = 2.0 * torch.matmul(x[:, None], dec.transpose(1, 2)[None]).float() \
+        + ((6.0 - lsq)[:, None, :, None] - rsq[None, :, None, :])
     return (simi + (rvalid[None, :, None, :] - 1.0) * 1e30).max(-1)
 
 
 def norm_library(ldes, lvalid, rdes, rvalid):
     import torch
+    ldes, rdes = lib_cast(ldes, rdes)
     lv, rv = lvalid[:, None, :, None], rvalid[None, :, None, :]
-    g = torch.matmul(ldes[:, None], rdes.transpose(1, 2)[None]) \
+    g = torch.matmul(ldes[:, None], rdes.transpose(1, 2)[None]).float() \
         .clamp(min=0.0) * lv * rv
     n = g / (g.sum(-1, keepdim=True) + g.sum(-2, keepdim=True) - g
              + 1e-6) * lv * rv
@@ -267,20 +337,22 @@ def hold(fn, plain, library, reps: int, twin=None) -> dict:
     torch.cuda.synchronize()
     outs = got if isinstance(got, tuple) else (got,)
     wants = want if isinstance(want, tuple) else (want,)
-    ok = torch.allclose(outs[0], wants[0], **TOL) and all(
+    ok = torch.allclose(outs[0].double(), wants[0].double(), **TOL) and all(
         torch.equal(a, b) for a, b in zip(outs[1:], wants[1:]))
     if twin is not None:
         tw = twin()
         tw = tw if isinstance(tw, tuple) else (tw,)
         ok = ok and all(torch.equal(a, b) for a, b in zip(outs, tw))
-    return dict(max_abs_err=float((outs[0] - wants[0]).abs().max()),
+    return dict(max_abs_err=float((outs[0].double()
+                                   - wants[0].double()).abs().max()),
                 ok=bool(ok), out_bytes=nbytes(*outs), ms=cuda_ms(fn, reps),
                 plain_ms=cuda_ms(plain, 1, warm=False),
                 library_ms=None if library is None else cuda_ms(library, reps))
 
 
 def dense_records(minu, adc, tex, reps: int) -> dict:
-    """The dense path's three kernels on one block's inputs."""
+    """The dense path's three kernels on one block's inputs, keyed by
+    ``tag`` (the typed kernels by their operand types)."""
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     NL, Lt, D = adc["x"].shape
     B, Rt, _ = adc["dec"].shape
@@ -290,8 +362,8 @@ def dense_records(minu, adc, tex, reps: int) -> dict:
     r["library_err"] = float((rowmax_library(**adc).values
                               - ops.adc_rowmax_plain(**adc)[0]).abs().max())
     r["bound"] = bound(2.0 * NL * B * Lt * Rt * D,
-                       tensor_bytes(adc) + r["out_bytes"])
-    rec = {"adc_rowmax": r}
+                       tensor_bytes(adc) + r["out_bytes"], peak_of(adc["x"]))
+    rec = {tag("adc_rowmax", adc["x"], adc["dec"]): r}
     best, bestj = ops.adc_rowmax(**adc)
 
     stats = {}
@@ -306,7 +378,7 @@ def dense_records(minu, adc, tex, reps: int) -> dict:
 
     NT, P, _ = minu["ldes"].shape
     R = minu["rdes"].shape[1]
-    r = rec["minutiae_match"] = hold(
+    r = rec[tag("minutiae_match", minu["ldes"], minu["rdes"])] = hold(
         lambda: ops.minutiae_match(**minu),
         lambda: ops.minutiae_match_plain(stats=stats, **minu), None, reps)
     pre_ops = NT * B * (2.0 * P * R * D + 5.0 * P * R
@@ -315,34 +387,45 @@ def dense_records(minu, adc, tex, reps: int) -> dict:
     r["bound"] = bound(pre_ops + filter_ops(stats["k_valid"],
                                             stats["n_stage1"],
                                             minu["dist_iters"]),
-                       tensor_bytes(minu) + r["out_bytes"])
+                       tensor_bytes(minu) + r["out_bytes"],
+                       peak_of(minu["ldes"]))
     return rec
 
 
 def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
-    """The three screen kernels on one launch's inputs (``engine.screen_args``
-    in both layouts); plain versions and library calls ``step`` entries at
-    a time; adc_screen_codes equal to adc_screen bit for bit."""
+    """The screen kernels on one launch's inputs (``engine.screen_args``;
+    either layout may be None); plain versions and library calls ``step``
+    entries at a time; adc_screen_codes equal to adc_screen bit for bit
+    when both are given. Keyed by ``tag``."""
     from msu_latentafis_tpu_torch.matcher.kernels import ops
-    NT, P, D = mscr["ldes"].shape
-    B, R, _ = mscr["rdes"].shape
-    r = hold(lambda: ops.minu_screen(**mscr),
-             by_entries(ops.minu_screen_plain, mscr, step),
-             by_entries(minu_library, mscr, step), reps)
-    r["bound"] = bound(2.0 * NT * B * P * R * D,
-                       tensor_bytes(mscr) + r["out_bytes"])
-    rec = {"minu_screen": r}
-    NL, Lt, _ = adc["x"].shape
-    Rt = adc["rsq"].shape[1]
+    rec = {}
+    if mscr is not None:
+        NT, P, D = mscr["ldes"].shape
+        B, R, _ = mscr["rdes"].shape
+        r = hold(lambda: ops.minu_screen(**mscr),
+                 by_entries(ops.minu_screen_plain, mscr, step),
+                 by_entries(minu_library, mscr, step), reps)
+        r["bound"] = bound(2.0 * NT * B * P * R * D,
+                           tensor_bytes(mscr) + r["out_bytes"],
+                           peak_of(mscr["ldes"]))
+        rec[tag("minu_screen", mscr["ldes"], mscr["rdes"])] = r
     for name, args, twin in (
             ("adc_screen", adc, None),
-            ("adc_screen_codes", adc_codes, lambda: ops.adc_screen(**adc))):
-        r = rec[name] = hold(
+            ("adc_screen_codes", adc_codes,
+             None if adc is None else lambda: ops.adc_screen(**adc))):
+        if args is None:
+            continue
+        NL, Lt, D = args["x"].shape
+        B, Rt = args["rsq"].shape
+        r = hold(
             lambda: getattr(ops, name)(**args),
             by_entries(getattr(ops, name + "_plain"), args, step),
             by_entries(screen_library, args, step), reps, twin)
         r["bound"] = bound(2.0 * NL * B * Lt * Rt * D,
-                           tensor_bytes(args) + r["out_bytes"])
+                           tensor_bytes(args) + r["out_bytes"],
+                           peak_of(args["x"]))
+        rec[tag(name, args["x"], *([args["dec"]] if "dec" in args
+                                   else []))] = r
     return rec
 
 
@@ -356,7 +439,8 @@ def norm_record(mscr, step: int, reps: int) -> dict:
              by_entries(ops.minu_screen_norm_plain, mscr, step),
              by_entries(norm_library, mscr, step), reps)
     r["bound"] = bound(2.0 * NT * B * P * R * D,
-                       tensor_bytes(mscr) + r["out_bytes"])
+                       tensor_bytes(mscr) + r["out_bytes"],
+                       peak_of(mscr["ldes"]))
     return r
 
 
@@ -517,16 +601,18 @@ def large_print_records(rng, device, reps: int) -> dict:
 
 
 def rowmax_codes_record(adc_codes, adc, reps: int) -> dict:
-    """adc_rowmax_codes on one block, equal to adc_rowmax bit for bit."""
+    """adc_rowmax_codes on one block, equal to adc_rowmax bit for bit (when
+    the predecoded twin ``adc`` is given)."""
     from msu_latentafis_tpu_torch.matcher.kernels import ops
-    NL, Lt, D = adc["x"].shape
-    B, Rt, _ = adc["dec"].shape
+    NL, Lt, D = adc_codes["x"].shape
+    B, Rt = adc_codes["rsq"].shape
     r = hold(lambda: ops.adc_rowmax_codes(**adc_codes),
              lambda: ops.adc_rowmax_codes_plain(**adc_codes),
              lambda: rowmax_library(**adc_codes), reps,
-             twin=lambda: ops.adc_rowmax(**adc))
+             twin=None if adc is None else lambda: ops.adc_rowmax(**adc))
     r["bound"] = bound(2.0 * NL * B * Lt * Rt * D,
-                       tensor_bytes(adc_codes) + r["out_bytes"])
+                       tensor_bytes(adc_codes) + r["out_bytes"],
+                       peak_of(adc_codes["x"]))
     return r
 
 
@@ -544,6 +630,14 @@ def per_launch(parts) -> dict:
                 plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
                 bound=(sum(r["bound"][0] * w for r, w in parts) / n,
                        max(parts, key=lambda p: p[1])[0]["bound"][1]))
+
+
+def chunk_shapes(engine, G: int) -> list:
+    """(first entry, how many such launches) of _screen_all's launches over
+    G entries: its full chunks and its tail chunk."""
+    C = engine.screen_chunk
+    return ([(0, G // C)] if G >= C else []) + (
+        [(G - G % C, 1)] if G % C else [])
 
 
 def check_records(label: str, rec: dict) -> None:
@@ -569,7 +663,7 @@ def phase_kernels(engine, cb, rng):
                                           both_layouts=True)
     for g in (pre, codes):
         plant_gallery_entries(g, engine, mates, [0, 1])
-    L = engine.latent_side(engine.latent_batch(lats))
+    L = engine.latent_side(engine.latent_batch(lats), pre)
     minu, adc, tex = engine.block_args(L, pre, 0)
     rec = dense_records(minu, adc, tex, reps=20)
     rows = slice(0, 64)
@@ -625,15 +719,22 @@ def phase_cli(cb, rng, workdir):
         write_final_rolled_pq_template(os.path.join(gdir, f"r{j:03d}.dat"),
                                        to_pixels(r))
     write_final_latent_template(latf, to_pixels(lat))
+    cfg = os.path.join(workdir, "afis.config")
+    with open(cfg, "w") as f:
+        json.dump({"CodebookPath": cbf, "ScorePath": os.path.join(
+            workdir, "scores_config_bf16"), "MatchBlockSize": 64,
+            "ComputeDtype": "bfloat16"}, f)
     for label, extra, kernels in (
             ("dense", [], ("minutiae_match", "adc_rowmax", "texture_match")),
             ("rerank 16", ["--rerank", "16"],
              ("minu_screen", "adc_screen", "minutiae_match", "adc_rowmax",
-              "texture_match"))):
+              "texture_match")),
+            ("config bf16", ["--config", cfg],
+             ("minutiae_match", "adc_rowmax", "texture_match"))):
         sdir = os.path.join(workdir, "scores_" + label.replace(" ", "_"))
+        paths = [] if label == "config bf16" else ["-c", cbf, "-s", sdir]
         ops.reset_launch_counts()
-        rc = cli.main(["match", "-l", latf, "-g", gdir, "-c", cbf, "-s", sdir,
-                       *extra])
+        rc = cli.main(["match", "-l", latf, "-g", gdir, *paths, *extra])
         counts = ops.launch_counts()
         if rc != 0:
             raise AssertionError(f"cli ({label}) returned {rc}")
@@ -701,7 +802,7 @@ def phase_engine(engine, cb, rng, card):
     # as _match_all launches them: the filter kernels' work depends on the
     # data, so one block without a mate and the first mate's block, each
     # weighted by how many blocks of the gallery are like it
-    L = engine.latent_side(engine.latent_batch(lats))
+    L = engine.latent_side(engine.latent_batch(lats), gal)
     B = engine.block_size
     mated = {p // B for p in positions}
     unmated = next(b for b in range(gal.size // B) if b not in mated)
@@ -715,7 +816,7 @@ def phase_engine(engine, cb, rng, card):
             parts.setdefault(name, []).append((r, n))
     rec = {name: per_launch(p) for name, p in parts.items()}
     check_records("kernels, dense path (per launch over one call)", rec)
-    return counts, rec, (gal, codes), lats, positions, scores
+    return counts, rec, (gal, codes), lats, mates, positions, scores
 
 
 def mate_at_rank1(idx, exact, positions, label):
@@ -815,7 +916,6 @@ def phase_scale(engine, cb, rng, card):
     held and timed at the shapes this path launched it with."""
     import numpy as np
     import torch
-    from msu_latentafis_tpu_torch.matcher.engine import SCREEN_CHUNK
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     from msu_latentafis_tpu_torch.utils.synthetic import (
         device_synthetic_gallery, plant_gallery_entries)
@@ -874,13 +974,13 @@ def phase_scale(engine, cb, rng, card):
     # The screens as _screen_all launched them: the truncated latents over
     # every full SCREEN_CHUNK of entries and the tail chunk.
     lat = engine.latent_batch(lats)
-    L = engine.screen_side(lat, SERVE["prescreen_lt"], SERVE["prescreen_t"])
+    L = engine.screen_side(lat, pre, SERVE["prescreen_lt"],
+                           SERVE["prescreen_t"])
     G = pre.size
-    shapes = ([(0, G // SCREEN_CHUNK)] if G >= SCREEN_CHUNK else []) + (
-        [(G - G % SCREEN_CHUNK, 1)] if G % SCREEN_CHUNK else [])
+    shapes = chunk_shapes(engine, G)
     parts = {}
     for a, n in shapes:
-        rows = slice(a, a + SCREEN_CHUNK)
+        rows = slice(a, a + engine.screen_chunk)
         mscr, sadc = engine.screen_args(L, pre, rows)
         rec = screen_records(mscr, sadc, engine.screen_args(L, codes, rows)[1],
                              step=2048, reps=3)
@@ -901,7 +1001,7 @@ def phase_scale(engine, cb, rng, card):
     B = engine.block_size
     sub = torch.as_tensor(out["codes-resident"][0][0, :B], device=pre.
                           minu_des.device)
-    L1 = engine.latent_side({k: v[:1] for k, v in lat.items()})
+    L1 = engine.latent_side({k: v[:1] for k, v in lat.items()}, codes)
     rec["adc_rowmax_codes"] = rowmax_codes_record(
         engine.block_args(L1, codes.take(sub), 0)[1],
         engine.block_args(L1, pre.take(sub), 0)[1], reps=10)
@@ -933,7 +1033,8 @@ def phase_scale(engine, cb, rng, card):
                              f"launches, expected {n_launch} chunks")
     parts = []
     for a, n in shapes:
-        mscr = engine.screen_args(L, pre, slice(a, a + SCREEN_CHUNK))[0]
+        mscr = engine.screen_args(L, pre,
+                                  slice(a, a + engine.screen_chunk))[0]
         r = norm_record(mscr, step=2048, reps=3)
         check_records(f"kernels, normalize serving screen ({SERVE_LATENTS} "
                       f"latents x {mscr['rdes'].shape[0]} entries, x{n} per "
@@ -942,7 +1043,7 @@ def phase_scale(engine, cb, rng, card):
     rec["minu_screen_norm"] = per_launch(parts)
     check_records("kernels, normalize serving (per launch over one call)",
                   {"minu_screen_norm": rec["minu_screen_norm"]})
-    return counts, rec
+    return counts, rec, lats, mates, positions
 
 
 def phase_filters(engine, cb, rng, card):
@@ -1035,7 +1136,7 @@ def phase_filters(engine, cb, rng, card):
     lats, mates = make_latents(rng, 2, cb)
     gal = device_synthetic_gallery(engine, 64, seed=4)
     plant_gallery_entries(gal, engine, mates, [0, 1])
-    L = engine.latent_side(engine.latent_batch(lats))
+    L = engine.latent_side(engine.latent_batch(lats), gal)
     minu = engine.block_args(L, gal, 0)[0]
     R = minu["rdes"].shape[1]
     simi = minutiae_similarity(minu["ldes"], minu["lvalid"], minu["rdes"],
@@ -1057,6 +1158,386 @@ def phase_filters(engine, cb, rng, card):
         raise AssertionError(f"infuse after selection != minutiae_match: "
                              f"{err}")
     return counts, rec
+
+
+def typed_engine(cb, **kw):
+    """The port's engine in a throughput mode on the card, block 64."""
+    import torch
+    from msu_latentafis_tpu_torch.matcher.engine import MatchEngine
+    return MatchEngine(cb, block_size=64, compute_dtype=torch.bfloat16,
+                       device="cuda", **kw)
+
+
+def timed(fn):
+    """The main path fn() with the launch counts set to 0 just before it:
+    (result, seconds, the counts just after it, steady seconds of a second
+    call, which must give the same result)."""
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    out = []
+    for _ in range(2):
+        if not out:
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out.append((r, time.perf_counter() - t0, ops.launch_counts()))
+    a, b = out[0][0], out[1][0]
+    same = torch.equal(a, b) if isinstance(a, torch.Tensor) else all(
+        np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
+    if not same:
+        raise AssertionError("results not repeatable")
+    return a, out[0][1], out[0][2], out[1][1]
+
+
+def phase_modes_dense(cb, card, lats, mates, positions, dense32):
+    """Phase 3's gallery (seed 2: the same f32 values) and latents in bf16,
+    bf16 + tex_int8 and bf16 + minu_int8, dense; the typed dense kernels
+    held and timed as this path launches them."""
+    import torch
+    from msu_latentafis_tpu_torch.utils.synthetic import (
+        device_synthetic_gallery, plant_gallery_entries)
+    n_real = GALLERY_G
+    ref32 = dense32[:, :n_real].cpu()
+    scores, counts, parts = {}, {}, {}
+    for label, kw in (("bf16", {}), ("bf16+tex_int8", dict(tex_int8=True)),
+                      ("bf16+minu_int8", dict(minu_int8=True))):
+        e = typed_engine(cb, **kw)
+        gal = device_synthetic_gallery(e, GALLERY_G, seed=2)
+        plant_gallery_entries(gal, e, mates, positions)
+        s, first_s, counts[label], steady_s = timed(
+            lambda: e.match_scores_batch(lats, gal))
+        if min(counts[label][k] for k in DENSE_KERNELS) <= 0 or any(
+                counts[label][k] for k in counts[label]
+                if k not in DENSE_KERNELS):
+            raise AssertionError(f"{label}: launches {counts[label]}")
+        s = s[:, :n_real].cpu()
+        scores[label] = s
+        if not torch.isfinite(s).all():
+            raise AssertionError(f"{label}: scores not finite")
+        for i, p in enumerate(positions):
+            srt = torch.sort(s[i], descending=True).values
+            if int(torch.argmax(s[i])) != p or not float(s[i, p]) > float(
+                    srt[1]):
+                raise AssertionError(f"{label}: latent {i}'s mate not at "
+                                     f"rank 1")
+        log(f"[modes dense] {label}: {len(lats)} latents x {gal.size} "
+            f"entries (minu_des {gal.minu_des.dtype}, tex_dec "
+            f"{gal.tex_dec.dtype}): first {first_s:.3f} s, steady "
+            f"{steady_s:.3f} s, {len(lats) / steady_s:.2f} latents/s on "
+            f"{card}; mates at rank 1, scores "
+            f"{[round(float(s[i, p]), 3) for i, p in enumerate(positions)]}; "
+            f"launches {counts[label]}")
+        if label == "bf16":
+            continue
+        profile_call(f"dense {label}",
+                     lambda: e.match_scores_batch(lats, gal))
+        L = e.latent_side(e.latent_batch(lats), gal)
+        B = e.block_size
+        mated = {p // B for p in positions}
+        unmated = next(b for b in range(gal.size // B) if b not in mated)
+        for b, n in ((unmated, gal.size // B - len(mated)),
+                     (positions[0] // B, len(mated))):
+            rec = dense_records(*e.block_args(L, gal, b * B), reps=10)
+            check_records(f"kernels, {label} dense ({len(lats)} latents x "
+                          f"{B} entries at {b * B}, x{n} per call)", rec)
+            for name, r in rec.items():
+                if name != "texture_match":
+                    parts.setdefault(name, []).append((r, n))
+                    counts.setdefault("typed", {})[name] = \
+                        counts[label][name.split("[")[0]]
+        del gal
+        torch.cuda.empty_cache()
+
+    # Each mode against its reference as tests/test_int8_mode.py judges it
+    # (tex_int8: rtol 0.05 / atol 0.3, reference bf16; minu_int8 and bf16:
+    # f32): on 6 entries there every score holds; at 65,536 pairs the
+    # modes' rounding flips some impostors' correspondence selections, in
+    # the JAX engine as in the port (PERF.md, ROADMAP Queue 3), so the
+    # counts outside are printed and what holds at scale is held: the
+    # rank-1 entries and the mates' scores, and minu_int8's impostors under
+    # a tenth of the mate.
+    t8, b16, m8 = (scores[k] for k in ("bf16+tex_int8", "bf16",
+                                       "bf16+minu_int8"))
+    for label, s, ref, ref_label in (("bf16+tex_int8", t8, b16, "bf16"),
+                                     ("bf16", b16, ref32, "f32"),
+                                     ("bf16+tex_int8", t8, ref32, "f32"),
+                                     ("bf16+minu_int8", m8, ref32, "f32")):
+        d = (s - ref).abs()
+        over = d > 0.3 + 0.05 * ref.abs()
+        worst = torch.topk(d.flatten(), 3)
+        log(f"[modes dense] {label} vs {ref_label}: max |diff| "
+            f"{float(d.max()):.4f}, {int(over.sum())} of {d.numel()} scores "
+            f"outside rtol 0.05 / atol 0.3; largest diffs "
+            f"{[round(float(v), 3) for v in worst.values]} at scores "
+            f"{[round(float(ref.flatten()[i]), 3) for i in worst.indices]}")
+    for i, p in enumerate(positions):
+        if not (torch.allclose(t8[i, p], b16[i, p], rtol=0.05)
+                and torch.allclose(t8[i, p], ref32[i, p], rtol=0.05)
+                and torch.allclose(m8[i, p], ref32[i, p], rtol=0.02)):
+            raise AssertionError(f"latent {i}: a mode's mate score leaves "
+                                 f"its reference's")
+        others = torch.cat([m8[i, :p], m8[i, p + 1:]])
+        if not bool((others < 0.1 * m8[i, p]).all()):
+            raise AssertionError(f"minu_int8 latent {i}: an impostor above "
+                                 f"a tenth of the mate")
+    log("[modes dense] every mode's rank 1 is f32's (the mates); tex_int8 "
+        "mates within rtol 0.05 of bf16 and f32, minu_int8 mates within "
+        "rtol 0.02 of f32, its impostors under a tenth of the mate")
+    rec = {name: per_launch(p) for name, p in parts.items()}
+    check_records("kernels, modes dense (per launch over one call)", rec)
+    return counts.get("typed", {}), rec
+
+
+def phase_modes_serving(cb, card, lats, mates, positions):
+    """bf16 + tex_int8 predecoded serving on phase 5's gallery (seed 3) and
+    latents at the JAX bench's code defaults; the typed screens held per
+    chunk; normalize=True serving in the same mode."""
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.utils.synthetic import (
+        device_synthetic_gallery, plant_gallery_entries)
+    e = typed_engine(cb, tex_int8=True)
+    t0 = time.perf_counter()
+    pre = device_synthetic_gallery(e, SERVE_G, seed=3)
+    plant_gallery_entries(pre, e, mates, positions)
+    torch.cuda.synchronize()
+    log(f"[modes serving] gallery {SERVE_G} (bf16 minutiae, int8 texture) "
+        f"built in {time.perf_counter() - t0:.2f} s: tex_dec "
+        f"{nbytes(pre.tex_dec) / 1e9:.2f} GB, minu_des "
+        f"{nbytes(pre.minu_des) / 1e9:.2f} GB")
+    counts = {}
+    for label, kw in (("bf16+tex_int8", SERVE_BENCH),
+                      ("bf16+tex_int8 normalize",
+                       dict(SERVE_BENCH, normalize=True))):
+        out, first_s, counts[label], steady_s = timed(
+            lambda: e.match_scores_batch_reranked(lats, pre, **kw))
+        serving_launched(label, counts[label], pre, "normalize" in kw)
+        idx, exact = out[0], out[1]
+        if "normalize" in kw:
+            log(f"[modes serving] {label}: mates' ranks "
+                f"{mate_ranks(idx, exact, positions)} (printed, not "
+                f"asserted)")
+        else:
+            mate_at_rank1(idx, exact, positions, f"modes serving {label}")
+        log(f"[modes serving] {label}: {len(lats)} latents x {pre.size} "
+            f"entries (m {kw['m']}, prescreen {kw['prescreen_k']}/"
+            f"{kw['prescreen_lt']}/{kw['prescreen_t']}): first "
+            f"{first_s:.3f} s, steady {steady_s:.3f} s, "
+            f"{len(lats) / steady_s:.2f} latents/s on {card}; launches "
+            f"{counts[label]}")
+        if "normalize" not in kw:
+            profile_call(f"serve 100k {label}",
+                         lambda: e.match_scores_batch_reranked(lats, pre,
+                                                               **kw))
+            dense = e.match_scores_batch(lats, pre).cpu()
+            for i in range(len(lats)):
+                if not torch.equal(torch.as_tensor(exact[i]),
+                                   dense[i, torch.as_tensor(idx[i])]):
+                    raise AssertionError(f"{label}: exact != dense, latent "
+                                         f"{i}")
+            log(f"[modes serving] {label}: kept exact scores equal the "
+                f"mode's dense scores at the kept indices")
+            if not np.isnan(out[2]).all():
+                raise AssertionError("prescreen margins must be NaN")
+
+    lat = e.latent_batch(lats)
+    L = e.screen_side(lat, pre, SERVE_BENCH["prescreen_lt"],
+                      SERVE_BENCH["prescreen_t"])
+    shapes = chunk_shapes(e, pre.size)
+    parts = {}
+    for a, n in shapes:
+        mscr, sadc = e.screen_args(L, pre, slice(a, a + e.screen_chunk))
+        rec = screen_records(mscr, sadc, None, step=2048, reps=3)
+        rec[tag("minu_screen_norm", mscr["ldes"], mscr["rdes"])] = \
+            norm_record(mscr, 2048, 3)
+        check_records(f"kernels, modes serving screens ({len(lats)} latents "
+                      f"x {mscr['rdes'].shape[0]} entries, x{n} per call)",
+                      rec)
+        for name, r in rec.items():
+            parts.setdefault(name, []).append((r, n))
+    rec = {name: per_launch(p) for name, p in parts.items()}
+    check_records("kernels, modes serving (per launch over one call)", rec)
+    n_launch = sum(n for _, n in shapes)
+    launches = {}
+    for name in rec:
+        base = name.split("[")[0]
+        src = "bf16+tex_int8 normalize" if base == "minu_screen_norm" \
+            else "bf16+tex_int8"
+        launches[name] = counts[src][base]
+        if launches[name] != n_launch:
+            raise AssertionError(f"{name}: {launches[name]} launches, "
+                                 f"expected {n_launch} chunks")
+    return launches, rec
+
+
+def phase_cap(cb, rng, card):
+    """The reference-cap shape, codes-resident, minu_int8, bf16: serving 8
+    latents over 16,384 entries at the JAX bench's code defaults; the typed
+    codes kernels held."""
+    import torch
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    from msu_latentafis_tpu_torch.utils.synthetic import (
+        device_synthetic_gallery, plant_gallery_entries)
+    e = typed_engine(cb, minu_int8=True, codes_resident=True)
+    t0 = time.perf_counter()
+    gal = device_synthetic_gallery(e, CAP_G, n_minu=CAP["Rm"],
+                                   n_tex=CAP["Rt"], seed=5,
+                                   both_layouts=True)[1]
+    lats, mates = make_latents(rng, SERVE_LATENTS, cb, CAP["Lm"], CAP["Lt"],
+                               CAP["Rm"], CAP["Rt"])
+    positions = [int(CAP_G * (i + 0.5) / SERVE_LATENTS) + 5 * i
+                 for i in range(SERVE_LATENTS)]
+    plant_gallery_entries(gal, e, mates, positions)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"[cap] gallery {CAP_G} x (Rm {CAP['Rm']}, Rt {CAP['Rt']}, D 96) "
+        f"codes-resident, int8 minutiae, built in "
+        f"{time.perf_counter() - t0:.2f} s: tex_codes "
+        f"{nbytes(gal.tex_codes) / 1e9:.2f} GB, minu_des "
+        f"{nbytes(gal.minu_des) / 1e9:.2f} GB ({CAP_G} entries, not the "
+        f"bench's 100,000)")
+    out, first_s, counts, steady_s = timed(
+        lambda: e.match_scores_batch_reranked(lats, gal, **SERVE_BENCH))
+    serving_launched("cap", counts, gal)
+    mate_at_rank1(out[0], out[1], positions, "cap")
+    log(f"[cap] {SERVE_LATENTS} latents x {gal.size} entries (Lm {CAP['Lm']} "
+        f"Lt {CAP['Lt']}; m {SERVE_BENCH['m']}, prescreen "
+        f"{SERVE_BENCH['prescreen_k']}/{SERVE_BENCH['prescreen_lt']}/"
+        f"{SERVE_BENCH['prescreen_t']}): first {first_s:.3f} s, steady "
+        f"{steady_s:.3f} s, {SERVE_LATENTS / steady_s:.2f} latents/s on "
+        f"{card}; mates' ranks {mate_ranks(out[0], out[1], positions)}; "
+        f"launches {counts}")
+    profile_call("serve cap 16k",
+                 lambda: e.match_scores_batch_reranked(lats, gal,
+                                                       **SERVE_BENCH))
+    lat = e.latent_batch(lats)
+    L = e.screen_side(lat, gal, SERVE_BENCH["prescreen_lt"],
+                      SERVE_BENCH["prescreen_t"])
+    mscr, cadc = e.screen_args(L, gal, slice(0, e.screen_chunk))
+    rec = screen_records(mscr, None, cadc, step=1024, reps=3)
+    sub = torch.as_tensor(out[0][0, :e.block_size], device=e.device)
+    L1 = e.latent_side({k: v[:1] for k, v in lat.items()}, gal)
+    minu, cadc1, _ = e.block_args(L1, gal.take(sub), 0)
+    rec[tag("adc_rowmax_codes", cadc1["x"])] = \
+        rowmax_codes_record(cadc1, None, reps=5)
+    check_records(f"kernels, cap serving (screens on {gal.size} entries; "
+                  f"rerank 1 latent x {e.block_size} entries)", rec)
+    stats = {}
+    r = hold(lambda: ops.minutiae_match(**minu),
+             lambda: ops.minutiae_match_plain(stats=stats, **minu), None, 5)
+    check_records("kernels, cap rerank (1 latent x 64 entries; not in the "
+                  "kernels line: the 448 path holds this type pair)",
+                  {tag("minutiae_match", minu["ldes"], minu["rdes"]):
+                   dict(r, bound=(0.0, "not computed"))})
+    launches = {name: counts[name.split("[")[0]] for name in rec}
+    return launches, rec
+
+
+def phase_scripts(engine, card):
+    """The ported experiment and probe scripts and the launch canary, as
+    their main paths; then each kernel held against its plain version at
+    those shapes."""
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    from msu_latentafis_tpu_torch.scripts import exp_screen_mfu as esm
+    from msu_latentafis_tpu_torch.scripts import microbench_h1_probe as h1p
+    dev = engine.device
+    emit = lambda line: log(f"[scripts] {line}")
+    x = torch.randn((8, 128, 448), device=dev)
+    limit = ops.max_smem_optin()
+    ops.reset_launch_counts()
+    esm.run(emit, dev)
+    probe = h1p.run(emit, dev)
+    legal = (dict(threads=256, smem_bytes=0),
+             dict(threads=256, smem_bytes=limit))
+    for plan in legal:
+        if not torch.equal(ops.legality_canary(x, **plan), x):
+            raise AssertionError(f"canary: legal plan {plan} did not copy")
+    for plan in (dict(threads=256, smem_bytes=limit + 4),
+                 dict(threads=2048, smem_bytes=0)):
+        try:
+            ops.legality_canary(x, **plan)
+        except RuntimeError as err:
+            emit(f"canary: plan {plan} refused as it must be: {err}")
+        else:
+            raise AssertionError(f"canary: plan {plan} above the card's "
+                                 f"limits (shared memory opt-in {limit} "
+                                 f"bytes) did not raise")
+    if not torch.equal(ops.legality_canary(x, 128, 4096), x):
+        raise AssertionError("canary: the launch after a refused one failed")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    emit(f"canary: legal plans copy bit for bit (opt-in limit {limit} "
+         f"bytes); launches {counts}")
+    if not probe["matmul_exact"]:
+        raise AssertionError("h1 probe: matmul != bcast")
+    if min(counts[k] for k in ("screen_t_bf16", "screen_t_int8", "h1_probe",
+                               "legality_canary", "adc_screen")) <= 0:
+        raise AssertionError(f"scripts skipped a kernel: {counts}")
+
+    a = esm.make_inputs(np.random.default_rng(0), dev)
+    B = a["dec"].shape[0]
+    M = esm.NL * esm.Lt
+    rec = {}
+    xt, dect = ops.screen_t_operands(a["x"], a["dec"], a["rsq"], a["rvalid"])
+    step = 256
+
+    def by_dect(fn, xt_, *ts):
+        """fn over ``step`` entries of dect (and corr) at a time."""
+        return lambda: torch.cat([fn(xt_, *(t[s:s + step] for t in ts))
+                                  for s in range(0, B, step)])
+
+    def lib_bf16(xt_, d):
+        return torch.matmul(d, xt_).float().amax(dim=1)
+    r = hold(lambda: ops.screen_t_bf16(xt, dect),
+             by_dect(ops.screen_t_bf16_plain, xt, dect),
+             by_dect(lib_bf16, xt, dect), 3)
+    r["bound"] = bound(2.0 * B * dect.shape[1] * M * dect.shape[2],
+                       nbytes(xt, dect) + r["out_bytes"], PEAK_BF16_FLOPS)
+    rec["screen_t_bf16"] = r
+    xq, dq, corr, _ = ops.screen_t_operands(a["x"], a["dec"], a["rsq"],
+                                            a["rvalid"], int8=True)
+
+    def lib_int8(xt_, d, c):
+        S, Rt, D = d.shape
+        dots = torch._int_mm(d.reshape(S * Rt, D), xt_)
+        return (dots.reshape(S, Rt, -1) + c[:, :, None]).amax(dim=1)
+    lib = by_dect(lib_int8, xq, dq, corr)
+    try:
+        lib()
+    except (RuntimeError, AttributeError) as err:
+        emit(f"screen_t_int8: no library int8 GEMM here ({err})")
+        lib = None
+    r = hold(lambda: ops.screen_t_int8(xq, dq, corr),
+             by_dect(ops.screen_t_int8_plain, xq, dq, corr), lib, 3)
+    r["bound"] = bound(2.0 * B * dq.shape[1] * M * dq.shape[2],
+                       nbytes(xq, dq, corr) + r["out_bytes"], PEAK_INT8_OPS)
+    rec["screen_t_int8"] = r
+
+    p = h1p.make_inputs(np.random.default_rng(0), dev)
+    NP, K = p["lx"].shape
+    parts = []
+    for v in ops.H1_VARIANTS:
+        r = hold(lambda v=v: ops.h1_probe(**p, variant=v),
+                 by_slices(ops.h1_probe_plain, dict(p, variant=v), 512, NP,
+                           {k: 0 for k in p}, 0), None, 5)
+        r["bound"] = bound(30.0 * float((p["vf"].sum(1) ** 2).sum()),
+                           nbytes(*p.values()) + r["out_bytes"])
+        check_records(f"kernels, h1 probe {v} ({NP} sets of K {K})",
+                      {f"h1_probe {v}": r})
+        parts.append((r, 1))
+    rec["h1_probe"] = per_launch(parts)
+    y = torch.empty_like(x)
+    r = hold(lambda: ops.legality_canary(x, 256, limit),
+             lambda: ops.legality_canary_plain(x), lambda: y.copy_(x), 10)
+    r["bound"] = bound(0.0, 2.0 * nbytes(x))
+    rec["legality_canary"] = r
+    check_records("kernels, scripts (exp_screen_mfu at B 4096; h1 probe "
+                  "mean over its 3 variants; canary copy)", rec)
+    return {k: counts[k] for k in rec}, rec
 
 
 def profile_call(label, fn):
@@ -1125,9 +1606,15 @@ def main() -> int:
     name = "?"
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:                    # mangled: <name>_kernel[I<loader>...]
-            name = re.search(r"([a-z_]+_kernel)", m.group(1)).group(1) + (
-                "<codes>" if "CodeCols" in m.group(1) else "")
+        if m:                    # mangled: <name>_kernel[I<types>...]
+            sym = m.group(1)
+            k = re.search(r"(adc_rowmax|adc_screen|minu_screen_norm|"
+                          r"minu_screen|minutiae_match|texture_match|"
+                          r"graph_filter_infuse|graph_filter|screen_t_bf16|"
+                          r"screen_t_int8|h1_probe|canary_copy)_kernel",
+                          sym)
+            name = sym[:80] if k is None else \
+                k.group(0) + sym[k.end():k.end() + 48]
         elif "Used" in line or "spill" in line:
             log(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
 
@@ -1144,24 +1631,44 @@ def main() -> int:
         phase_cli(cb, rng, work)
     log(f"[phase 2] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts, rec, layouts, lats, positions, dense = phase_engine(
+    counts, rec, layouts, lats, mates, positions, dense = phase_engine(
         engine, cb, rng, card)
     log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_serving(engine, layouts, lats, positions, dense)
     log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
-    del layouts, dense
+    del layouts
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    scale, serve_rec = phase_scale(engine, cb, rng, card)
+    scale, serve_rec, s_lats, s_mates, s_positions = phase_scale(
+        engine, cb, rng, card)
     log(f"[phase 5] {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     filt, filt_rec = phase_filters(engine, cb, rng, card)
     log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    modes_counts, modes_rec = phase_modes_dense(cb, card, lats, mates,
+                                                positions, dense)
+    log(f"[phase 7] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mserve_counts, mserve_rec = phase_modes_serving(cb, card, s_lats,
+                                                    s_mates, s_positions)
+    log(f"[phase 8] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cap_counts, cap_rec = phase_cap(cb, rng, card)
+    log(f"[phase 9] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    script_counts, script_rec = phase_scripts(engine, card)
+    log(f"[phase 10] {time.perf_counter() - t0:.1f} s")
     # each kernel's launches and numbers on the main path that runs it: the
     # dense match (phase 3), 100,000-entry serving in its layout or with
-    # normalize=True (phase 5), the standalone filter path (phase 6)
+    # normalize=True (phase 5), the standalone filter path (phase 6), the
+    # modes' dense match (phase 7), serving (phase 8) and cap serving
+    # (phase 9), the scripts (phase 10)
     rec.update(serve_rec)
     rec.update(filt_rec)
     for k in ("minu_screen", "adc_screen"):
@@ -1171,19 +1678,30 @@ def main() -> int:
     counts["minu_screen_norm"] = scale["normalize"]["minu_screen_norm"]
     for k in ("graph_filter_packed", "graph_filter", "graph_filter_infuse"):
         counts[k] = filt[k]
+    for c, r in ((modes_counts, modes_rec), (mserve_counts, mserve_rec),
+                 (cap_counts, cap_rec), (script_counts, script_rec)):
+        counts.update(c)
+        rec.update(r)
 
     kernels = []
-    for name, (src, line) in KERNEL_META.items():
+    line = [n for n in rec if n.split("[")[0] in KERNEL_META]
+    for name in sorted(line, key=lambda n: (
+            list(KERNEL_META).index(n.split("[")[0]), n)):
+        src, replaces = KERNEL_META[name.split("[")[0]]
         r = rec[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"msu_latentafis_tpu_torch/matcher/kernels/csrc/{src}",
-            replaces=f"msu_latentafis_tpu/matcher/pallas_kernels.py:{line}",
-            launches=counts[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            replaces=replaces, launches=counts[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"]))
         if name in SHARED_SOURCE:
             kernels[-1]["shares_source_with"] = SHARED_SOURCE[name]
+    missing = set(KERNEL_META) - {k["name"].split("[")[0] for k in kernels}
+    if missing or min(k["launches"] for k in kernels) <= 0:
+        raise AssertionError(f"kernels line incomplete: missing {missing}, "
+                             f"launches {counts}")
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

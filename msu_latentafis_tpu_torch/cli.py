@@ -1,7 +1,8 @@
 """Command-line interface of the port: 1:N matching.
 
     python -m msu_latentafis_tpu_torch.cli match -l LATENT.dat \
-        -g GALLERY_DIR -c CODEBOOK.dat -s SCORE_DIR [--device cpu] \
+        -g GALLERY_DIR [-c CODEBOOK.dat] [-s SCORE_DIR] [--config FILE] \
+        [--device cpu] \
         [--rerank M [--prescreen K --prescreen-lt 64 --prescreen-t 1]]
 
 Scores one final latent ``.dat`` against every rolled ``.dat`` in the
@@ -9,8 +10,12 @@ gallery directory (the reference's One2List mode, matching/main.cpp:35-87),
 writes ``SCORE_DIR/<latent>.csv`` (the ranked top-24) and prints the top-24
 table. Without ``--rerank`` every entry gets the exact dense score; with
 it, screen-then-rerank serving gives exact scores to the top M screened
-entries only, and ``--prescreen`` makes the screen two-stage. ``-ldir``
-batches and correspondence files are not ported.
+entries only, and ``--prescreen`` makes the screen two-stage. ``-c`` and
+``-s`` default to the config's ``CodebookPath`` and ``ScorePath``; the
+config (``--config``, else an ``afis.config`` found from the working
+directory up) also gives ``MatchBlockSize`` and ``ComputeDtype``:
+"bfloat16" runs every kernel on bf16 operands, as the JAX CLI does.
+``-ldir`` batches and correspondence files are not ported.
 """
 from __future__ import annotations
 
@@ -21,6 +26,9 @@ import sys
 import time
 from typing import List, Optional
 
+import torch
+
+from .config import load_config
 from .matcher.engine import MatchEngine, write_rank_csv
 from .templates import (pack_gallery, pack_latent, read_codebook,
                         read_final_template)
@@ -37,15 +45,25 @@ def load_gallery_dir(engine: MatchEngine, gallery_dir: str):
 
 
 def cmd_match(args) -> int:
-    os.makedirs(args.scores, exist_ok=True)
-    engine = MatchEngine(read_codebook(args.codebook), device=args.device)
+    cfg = load_config(args.config)
+    codebook = args.codebook or cfg.CodebookPath
+    scores = args.scores or cfg.ScorePath
+    if not codebook or not scores:
+        raise SystemExit("match: give -c and -s, or a config with "
+                         "CodebookPath and ScorePath")
+    os.makedirs(scores, exist_ok=True)
+    engine = MatchEngine(read_codebook(codebook),
+                         block_size=cfg.MatchBlockSize,
+                         compute_dtype=torch.bfloat16
+                         if cfg.ComputeDtype == "bfloat16" else torch.float32,
+                         device=args.device)
     t0 = time.perf_counter()
     gallery = load_gallery_dir(engine, args.gallery)
     print(f"Gallery size: {gallery.n_real} "
           f"(loaded in {time.perf_counter() - t0:.2f}s)")
 
     name = os.path.splitext(os.path.basename(args.latent))[0]
-    out = os.path.join(args.scores, name + ".csv")
+    out = os.path.join(scores, name + ".csv")
     t = read_final_template(args.latent, kind="latent")
     if not t.minu_template and not t.texture_template:
         with open(out, "w") as f:
@@ -76,8 +94,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     pm.add_argument("-l", "--latent", required=True, help="latent .dat")
     pm.add_argument("-g", "--gallery", required=True,
                     help="directory of rolled .dat files")
-    pm.add_argument("-c", "--codebook", required=True, help="PQ codebook")
-    pm.add_argument("-s", "--scores", required=True, help="score directory")
+    pm.add_argument("-c", "--codebook",
+                    help="PQ codebook (default: the config's CodebookPath)")
+    pm.add_argument("-s", "--scores",
+                    help="score directory (default: the config's ScorePath)")
+    pm.add_argument("--config", help="afis.config path (default: the first "
+                                     "afis.config from the working directory "
+                                     "up)")
     pm.add_argument("--device", default="cuda",
                     help="torch device (default cuda)")
     pm.add_argument("--rerank", type=int, default=0, metavar="M",

@@ -16,6 +16,14 @@ gallery lives on the device as dense padded tensors:
   screen every entry, a stable top-k keeps the best m per latent, and the
   dense exact path scores only those.
 
+Throughput modes, as in the JAX engine: ``compute_dtype=torch.bfloat16``
+gives every kernel bf16 descriptor operands (f32 accumulation);
+``tex_int8`` stores the predecoded texture gallery as int8 with one global
+scale, folded into the latent operand; ``minu_int8`` stores the gallery's
+minutiae descriptors as int8 with one scale per gallery
+(``DeviceGallery.minu_scale``), folded in the same way. The squared norms
+and everything after the dot products stay f32.
+
 On a CUDA device every step runs the kernels; on the CPU the same wrappers
 run their plain PyTorch versions.
 """
@@ -35,9 +43,11 @@ from .texture_match import decode_pq
 
 DECODE_CHUNK = 4096      # gallery entries decoded per gather (bounds the
 #                          int64 index temporaries to ~0.5 GB)
-SCREEN_CHUNK = 16384     # gallery entries per screen launch: a screen entry
-#                          carries no state, so only the validity masks
-#                          (~30 MB at Rt 448) bound the chunk
+SCREEN_CHUNK = 16384     # gallery entries per screen launch (rounded down to
+#                          a block multiple): a screen entry carries no
+#                          state, so only the validity masks and the
+#                          screen's two aug planes (~30 MB each at Rt 448)
+#                          bound the chunk
 
 
 @dataclasses.dataclass
@@ -46,12 +56,13 @@ class DeviceGallery:
 
     Descriptors keep the minutiae axis before the feature axis; coordinate
     packs are (x, y, cos ori, sin ori). The texture side is either
-    predecoded f32 reconstructions of the PQ codes (``tex_dec``) or, for a
-    codes-resident gallery, the uint8 codes themselves (``tex_codes``,
-    16 B per minutia), decoded inside the kernels. A gallery holds exactly
-    one of the two.
+    predecoded reconstructions of the PQ codes (``tex_dec``, in the compute
+    dtype or int8) or, for a codes-resident gallery, the uint8 codes
+    themselves (``tex_codes``, 16 B per minutia), decoded inside the
+    kernels. A gallery holds exactly one of the two. ``minu_scale`` [1] f32
+    is the dequantization scale of int8 ``minu_des`` (None otherwise).
     """
-    minu_des: torch.Tensor           # [G, Rm, D] f32
+    minu_des: torch.Tensor           # [G, Rm, D] f32, bf16 or int8
     minu_pack: torch.Tensor          # [G, Rm, 4] f32
     minu_n: torch.Tensor             # [G] int32
     tex_sqnorm: torch.Tensor         # [G, Rt] f32 (||decode(codes)||^2)
@@ -59,8 +70,9 @@ class DeviceGallery:
     tex_n: torch.Tensor              # [G] int32
     names: List[str]
     n_real: int                      # entries before block padding
-    tex_dec: Optional[torch.Tensor] = None    # [G, Rt, D] f32
+    tex_dec: Optional[torch.Tensor] = None    # [G, Rt, D] f32/bf16/int8
     tex_codes: Optional[torch.Tensor] = None  # [G, Rt, S] uint8
+    minu_scale: Optional[torch.Tensor] = None  # [1] f32 with int8 minu_des
 
     TENSORS = ("minu_des", "minu_pack", "minu_n", "tex_sqnorm", "tex_pack",
                "tex_n", "tex_dec", "tex_codes")
@@ -83,7 +95,7 @@ class DeviceGallery:
         tensor, in that order. The result is nameless: its rows are
         positions in this gallery, which names them."""
         return DeviceGallery(
-            names=[], n_real=int(idx.shape[0]),
+            names=[], n_real=int(idx.shape[0]), minu_scale=self.minu_scale,
             **{f: None if getattr(self, f) is None
                else getattr(self, f).index_select(0, idx)
                for f in self.TENSORS})
@@ -109,20 +121,27 @@ class MatchEngine:
     """Scores latents against a device-resident gallery.
 
     codebook: f32 [n_subs, n_clusters, sub_dim] PQ codebook.
-    block_size: gallery entries per launch of the dense exact path.
-    compute_dtype: only torch.float32 in this port so far.
+    block_size: gallery entries per launch of the dense exact path (and
+        per scale of the int8 screen's -rsq / 2 row).
+    compute_dtype: torch.float32 (parity) or torch.bfloat16 (throughput):
+        the type of every descriptor operand of the kernels.
     row_cap: minutiae candidates per latent row (8, as on the TPU; the
         top-120 is exact while no latent row holds more than row_cap of it).
     codes_resident: keep the texture gallery as uint8 PQ codes instead of
-        predecoded f32 (the JAX engine's ``predecode=False``); None decides
+        predecoding it (the JAX engine's ``predecode=False``); None decides
         by ``should_predecode``.
+    tex_int8: predecode the texture gallery to int8 with the global scale
+        max|codebook| / 127.
+    minu_int8: store the gallery's minutiae descriptors as int8 with the
+        scale max|minu_des| / 127 of the gallery loaded.
     device: "cuda" unless the caller asks for "cpu".
     """
 
     # The JAX engine's budget for predecoded texture (``_should_predecode``),
-    # kept for galleries in host memory; counted on the 4 bytes an f32
-    # reconstruction takes, so at Rt 448 / D 96 a padded gallery of more
-    # than 52,288 entries stays codes-resident there.
+    # kept for galleries in host memory, counted as the JAX engine counts:
+    # 2 bytes per element, 1 with tex_int8. At Rt 448 / D 96, block 64, a
+    # padded gallery of more than 104,576 entries (209,216 with tex_int8)
+    # stays codes-resident there.
     PREDECODE_BUDGET_BYTES = 9_000_000_000
 
     def __init__(self, codebook: np.ndarray, block_size: int = 64,
@@ -130,36 +149,83 @@ class MatchEngine:
                  codes_resident: Optional[bool] = None,
                  tex_int8: bool = False, minu_int8: bool = False,
                  device="cuda"):
-        if compute_dtype != torch.float32 or tex_int8 or minu_int8:
-            raise NotImplementedError(
-                "only float32 compute is ported; the bf16 and int8 modes are "
-                "later work (ROADMAP Queue 1)")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or "
+                             f"bfloat16")
         self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.tex_int8 = bool(tex_int8)
+        self.minu_int8 = bool(minu_int8)
         self.codebook = np.asarray(codebook, np.float32)
         self.codebook_t = torch.as_tensor(self.codebook, device=self.device)
+        # the codebook the kernels and the predecode read: in the compute
+        # dtype, as the JAX engine builds its decode tensors
+        self.codebook_k = self.codebook_t.to(compute_dtype)
         self.n_subs, self.n_clusters, self.sub_dim = self.codebook.shape
+        # tex_int8: decoded values are codebook entries, so one global scale
+        # bounds them; quantizing the (compute-dtype) codebook once gives
+        # the quantized decode by the same gather, as the JAX engine's
+        # clip(round(decode / scale)) would elementwise
+        self.tex_scale = float(np.float32(
+            float(np.abs(self.codebook).max()) / 127.0 + 1e-12))
+        self.codebook_q = None
+        if self.tex_int8:
+            cbk = self.codebook_k.float().cpu().numpy()
+            self.codebook_q = torch.as_tensor(np.clip(np.round(
+                cbk / np.float32(self.tex_scale)), -127, 127).astype(np.int8),
+                device=self.device)
         self.block_size = int(block_size)
         self.row_cap = int(row_cap)
         self.codes_resident = codes_resident
 
+    @property
+    def tex_dec_dtype(self) -> torch.dtype:
+        return torch.int8 if self.tex_int8 else self.compute_dtype
+
     def should_predecode(self, G: int, Rt: int) -> bool:
         """Predecode a G x Rt texture gallery unless the caller fixed the
-        layout or its f32 would not fit: on a CUDA device, half the device
-        memory free at load time (the other half holds the screen's chunk
-        temporaries and the rerank's sub-galleries); on the CPU, the JAX
-        engine's budget. The predecoded layout serves faster."""
+        layout or it would not fit: on a CUDA device, the bytes the
+        predecoded tensor takes (4 per element in f32, 2 in bf16, 1 with
+        tex_int8) within half the device memory free at load time (the
+        other half holds the screen's chunk temporaries and the rerank's
+        sub-galleries); in host memory, the JAX engine's rule and budget.
+        The predecoded layout serves faster."""
         if self.codes_resident is not None:
             return not self.codes_resident
-        nbytes = G * Rt * self.n_subs * self.sub_dim * 4
+        elems = G * Rt * self.n_subs * self.sub_dim
         if self.device.type == "cuda":
+            nbytes = elems * self.tex_dec_dtype.itemsize
             return nbytes < torch.cuda.mem_get_info(self.device)[0] // 2
-        return nbytes < self.PREDECODE_BUDGET_BYTES
+        return elems * (1 if self.tex_int8 else 2) \
+            < self.PREDECODE_BUDGET_BYTES
+
+    def predecode(self, codes: torch.Tensor) -> torch.Tensor:
+        """uint8 PQ codes [..., S] -> the predecoded texture [..., D] of
+        this engine's mode: in the compute dtype, or int8 with tex_int8."""
+        if self.tex_int8:
+            return decode_pq(codes, self.codebook_q)
+        return decode_pq(codes, self.codebook_k)
+
+    def minutiae_storage(self, des: torch.Tensor):
+        """Gallery minutiae descriptors (f32, any shape) -> (stored, scale):
+        in the compute dtype and None, or with minu_int8 int8
+        clip(round(des / s)) and s = [max|des| / 127 + 1e-12] f32, computed
+        as the JAX engine's load_gallery computes them."""
+        if not self.minu_int8:
+            return des.to(self.compute_dtype), None
+        scale = float(des.abs().max()) / 127.0 + 1e-12
+        q = torch.clamp(torch.round(ops.true_div(des, float(np.float32(
+            scale)))), -127, 127).to(torch.int8)
+        return q, torch.full((1,), scale, dtype=torch.float32,
+                             device=des.device)
 
     # ------------------------------------------------------------------
     def load_gallery(self, packed: PackedGallery) -> DeviceGallery:
         """Pad the gallery axis to a block multiple, move it to the device
-        and, unless it stays codes-resident, predecode the PQ codes to f32
-        (chunked)."""
+        and, unless it stays codes-resident, predecode the PQ codes
+        (chunked). With minu_int8 the descriptors are quantized on the host
+        with the JAX engine's NumPy expression, so the int8 bits equal its
+        gallery's."""
         B = self.block_size
         G0 = packed.size
         G = -(-G0 // B) * B
@@ -178,14 +244,23 @@ class MatchEngine:
         tex = dict(tex_codes=codes)
         if self.should_predecode(G, codes.shape[1]):
             dec = torch.empty(tuple(codes.shape[:2]) + (
-                self.n_subs * self.sub_dim,), dtype=torch.float32,
+                self.n_subs * self.sub_dim,), dtype=self.tex_dec_dtype,
                 device=self.device)
             for a in range(0, G, DECODE_CHUNK):
-                dec[a:a + DECODE_CHUNK] = decode_pq(
-                    codes[a:a + DECODE_CHUNK], self.codebook_t)
+                dec[a:a + DECODE_CHUNK] = self.predecode(
+                    codes[a:a + DECODE_CHUNK])
             tex = dict(tex_dec=dec)
+        minu_des = np.asarray(packed.minu_des, np.float32)
+        minu_scale = None
+        if self.minu_int8:
+            mscale = float(np.abs(minu_des).max()) / 127.0 + 1e-12
+            minu_des = np.clip(np.round(minu_des / mscale), -127,
+                               127).astype(np.int8)
+            minu_scale = torch.full((1,), mscale, dtype=torch.float32,
+                                    device=self.device)
         return DeviceGallery(
-            minu_des=put(packed.minu_des, torch.float32),
+            minu_des=put(minu_des, torch.int8 if self.minu_int8
+                         else self.compute_dtype), minu_scale=minu_scale,
             minu_pack=coord_pack(put(packed.minu_xy), put(packed.minu_ori)),
             minu_n=put(packed.minu_n, torch.int32),
             tex_sqnorm=put(packed.tex_sqnorm, torch.float32),
@@ -205,18 +280,32 @@ class MatchEngine:
                     tex_des=f("tex_des", f32), tex_xy=f("tex_xy", f32),
                     tex_ori=f("tex_ori", f32), tex_n=f("tex_n", i32))
 
-    def latent_side(self, lat: dict) -> dict:
-        """Block-invariant latent operands of the kernels."""
+    def latent_side(self, lat: dict, gal: DeviceGallery,
+                    screen: bool = False) -> dict:
+        """Block-invariant latent operands of the kernels against ``gal``,
+        in the compute dtype, with the gallery's int8 scales folded in as
+        the JAX engine folds them: minutiae (des * minu_scale), texture
+        over an int8 predecoded gallery (x * tex_scale; the dense path
+        rounds x to the compute dtype before scaling, the screen after).
+        The squared norms stay f32, from the unrounded descriptors."""
         NL, T, Lm, D = lat["minu_des"].shape
         Lt = lat["tex_des"].shape[1]
+        cdt = self.compute_dtype
         tex_des = lat["tex_des"].contiguous()
+        minu_des = lat["minu_des"]
+        if gal.minu_scale is not None:
+            minu_des = minu_des.float() * gal.minu_scale
+        x = tex_des.to(cdt)
+        if gal.tex_dec is not None and gal.tex_dec.dtype == torch.int8:
+            scale = torch.full((1,), self.tex_scale, device=tex_des.device)
+            x = ((tex_des if screen else x).float() * scale).to(cdt)
         return dict(
             NL=NL, T=T,
-            minu_des=lat["minu_des"].reshape(NL * T, Lm, D).contiguous(),
+            minu_des=minu_des.to(cdt).reshape(NL * T, Lm, D).contiguous(),
             minu_valid=_valid(lat["minu_n"], Lm).reshape(NL * T, Lm),
             minu_pack=coord_pack(lat["minu_xy"], lat["minu_ori"])
             .reshape(NL * T, Lm, 4),
-            tex_des=tex_des, tex_sq=(tex_des * tex_des).sum(dim=-1),
+            tex_des=x.contiguous(), tex_sq=(tex_des * tex_des).sum(dim=-1),
             tex_valid=_valid(lat["tex_n"], Lt),
             tex_pack=coord_pack(lat["tex_xy"], lat["tex_ori"]),
             k_tex=min(MC.TOPN_TEX_CORR, Lt))
@@ -225,7 +314,7 @@ class MatchEngine:
         """The gallery's texture operand of the ADC kernels: ``dec`` or
         ``codes`` + ``codebook``."""
         if gal.codes_resident:
-            return dict(codes=gal.tex_codes[rows], codebook=self.codebook_t)
+            return dict(codes=gal.tex_codes[rows], codebook=self.codebook_k)
         return dict(dec=gal.tex_dec[rows])
 
     def block_args(self, L: dict, gal: DeviceGallery, a: int):
@@ -259,7 +348,7 @@ class MatchEngine:
         B = self.block_size
         if gal.size % B:
             raise ValueError(f"gallery size {gal.size} is not a multiple of {B}")
-        L = self.latent_side(lat)
+        L = self.latent_side(lat, gal)
         adc_kernel = ops.adc_rowmax_codes if gal.codes_resident \
             else ops.adc_rowmax
         s_minu_all, s_tex_all, fused_all = [], [], []
@@ -279,11 +368,12 @@ class MatchEngine:
         return torch.cat(fused_all, dim=1)
 
     # ------------------------------------------------------------------
-    def screen_side(self, lat: dict, lt_cap: int = 0,
+    def screen_side(self, lat: dict, gal: DeviceGallery, lt_cap: int = 0,
                     minu_t_cap: int = 0) -> dict:
-        """``latent_side`` of a latent batch truncated for the cheap first
-        stage of two-stage screening: the first ``lt_cap`` texture minutiae
-        and the first ``minu_t_cap`` minutiae templates (0 keeps all)."""
+        """The screen's ``latent_side`` of a latent batch, truncated for the
+        cheap first stage of two-stage screening: the first ``lt_cap``
+        texture minutiae and the first ``minu_t_cap`` minutiae templates
+        (0 keeps all)."""
         lat = dict(lat)
         if minu_t_cap:
             for k in ("minu_des", "minu_xy", "minu_ori", "minu_n"):
@@ -292,11 +382,13 @@ class MatchEngine:
             for k in ("tex_des", "tex_xy", "tex_ori"):
                 lat[k] = lat[k][:, :lt_cap]
             lat["tex_n"] = torch.clamp(lat["tex_n"], max=lt_cap)
-        return self.latent_side(lat)
+        return self.latent_side(lat, gal, screen=True)
 
     def screen_args(self, L: dict, gal: DeviceGallery, rows: slice):
         """Keyword arguments of minu_screen and adc_screen (adc_screen_codes
-        on a codes-resident gallery) for the gallery rows ``rows``."""
+        on a codes-resident gallery) for the gallery rows ``rows``; an int8
+        texture gallery's screen takes one scale per engine block, counted
+        from the first of ``rows``."""
         Rm, Rt = gal.minu_des.shape[1], gal.tex_sqnorm.shape[1]
         minu = dict(ldes=L["minu_des"], lvalid=L["minu_valid"],
                     rdes=gal.minu_des[rows],
@@ -305,6 +397,8 @@ class MatchEngine:
                    rsq=gal.tex_sqnorm[rows],
                    rvalid=_valid(gal.tex_n[rows], Rt),
                    **self._tex_operand(gal, rows))
+        if not gal.codes_resident and gal.tex_dec.dtype == torch.int8:
+            adc["block"] = self.block_size
         return minu, adc
 
     def _screen_all(self, lat: dict, gal: DeviceGallery, tau: float = 0.0,
@@ -316,14 +410,17 @@ class MatchEngine:
         does not survive the truncation of ``lt_cap`` / ``minu_t_cap``
         (``screen_side``), and ``normalize=True`` (the mutually normalized
         minutiae screen, a heuristic) bounds nothing. Each kernel launches
-        once per SCREEN_CHUNK entries.
+        once per SCREEN_CHUNK entries (rounded down to a block multiple,
+        so that the int8 screen's scale groups are the JAX engine's
+        blocks).
         """
-        L = self.screen_side(lat, lt_cap, minu_t_cap)
+        L = self.screen_side(lat, gal, lt_cap, minu_t_cap)
         adc_kernel = ops.adc_screen_codes if gal.codes_resident \
             else ops.adc_screen
+        chunk = self.screen_chunk
         out = []
-        for a in range(0, gal.size, SCREEN_CHUNK):
-            rows = slice(a, a + SCREEN_CHUNK)
+        for a in range(0, gal.size, chunk):
+            rows = slice(a, a + chunk)
             minu, adc = self.screen_args(L, gal, rows)
             s_minu = ops.minu_screen(normalize=normalize, **minu)
             s_tex = adc_kernel(tau=tau, **adc)
@@ -331,6 +428,12 @@ class MatchEngine:
                 + MC.TEXTURE_SCORE_WEIGHT * s_tex
             out.append(_skip_empty(screen, gal, rows))
         return torch.cat(out, dim=1)
+
+    @property
+    def screen_chunk(self) -> int:
+        """Gallery entries per screen launch."""
+        return max(self.block_size,
+                   SCREEN_CHUNK // self.block_size * self.block_size)
 
     def screen_scores_batch(self, latents: Sequence[PackedLatent],
                             gallery: DeviceGallery, tau: float = 0.0,

@@ -48,7 +48,9 @@ def seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
 def seq_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """acc[m, n, i, j] = sum_d a[m, i, d] * b[n, j, d], the D-long dots in
     index order with one rounding per product and per sum (the kernels'
-    order)."""
+    order). bf16 and int8 operands are widened to f32 first, as the kernels
+    widen them on load."""
+    a, b = a.float(), b.float()
     acc = torch.zeros((a.shape[0], b.shape[0], a.shape[1], b.shape[1]),
                       dtype=torch.float32, device=a.device)
     for d in range(a.shape[-1]):

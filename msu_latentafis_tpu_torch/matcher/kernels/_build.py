@@ -31,23 +31,33 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_TIMEOUT_S = 180
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C function name -> argument types; every launcher returns cudaError_t.
+# Launchers of typed kernels take each operand's type code (ops.DTYPE_CODE)
+# after the sizes.
 SIGNATURES = {
-    "afis_adc_rowmax": [_P] * 7 + [_I] * 5 + [_P],
-    "afis_adc_rowmax_codes": [_P] * 8 + [_I] * 7 + [_P],
-    "afis_adc_screen": [_P] * 7 + [_I] * 5 + [_F, _P],
-    "afis_adc_screen_codes": [_P] * 8 + [_I] * 7 + [_F, _P],
-    "afis_minu_screen": [_P] * 5 + [_I] * 5 + [_P],
-    "afis_minu_screen_norm": [_P] * 5 + [_I] * 5 + [_P],
+    "afis_adc_rowmax": [_P] * 7 + [_I] * 7 + [_P],
+    "afis_adc_rowmax_codes": [_P] * 8 + [_I] * 8 + [_P],
+    "afis_adc_screen": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+    "afis_adc_screen_codes": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    "afis_minu_screen": [_P] * 5 + [_I] * 7 + [_P],
+    "afis_minu_screen_norm": [_P] * 5 + [_I] * 7 + [_P],
     "afis_texture_match": [_P] * 6 + [_I] * 7 + [_P],
-    "afis_minutiae_match": [_P] * 8 + [_I] * 10 + [_P],
+    "afis_minutiae_match": [_P] * 8 + [_I] * 12 + [_P],
     "afis_minutiae_match_workspace": [_I] * 5,
-    "afis_minutiae_match_blocks": [_I] * 5,
+    "afis_minutiae_match_blocks": [_I] * 7,
     "afis_graph_filter_packed": [_P] * 7 + [_I] * 6 + [_P],
     "afis_graph_filter_infuse": [_P] * 8 + [_I] * 7 + [_P],
+    "afis_screen_t_bf16": [_P] * 3 + [_I] * 5 + [_P],
+    "afis_screen_t_int8": [_P] * 4 + [_I] * 5 + [_P],
+    "afis_h1_probe": [_P] * 6 + [_I] * 3 + [_P],
+    "afis_legality_canary": [_P] * 2 + [_L] + [_I] * 2 + [_P],
+    "afis_max_smem_optin": [],
     "afis_error_string": [_I],
+    "afis_error_name": [_I],
 }
 RESTYPES = {"afis_error_string": ctypes.c_char_p,
+            "afis_error_name": ctypes.c_char_p,
             "afis_minutiae_match_workspace": ctypes.c_longlong}
 
 
@@ -133,7 +143,10 @@ def load() -> ctypes.CDLL:
 
 def check(err: int, what: str) -> None:
     """Raise when a launcher returned a CUDA error (a refused launch is
-    never reported by a later synchronize)."""
+    never reported by a later synchronize); the message carries the
+    error's name, e.g. cudaErrorInvalidValue."""
     if err != 0:
-        msg = load().afis_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+        lib = load()
+        name = lib.afis_error_name(err).decode()
+        msg = lib.afis_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} {name} ({msg})")

@@ -17,18 +17,23 @@
 // lookup, not the TPU's one-hot matmul). Tiles merge in column order with a
 // strict >, threads merge with the smaller index on equal values, so ties
 // resolve to the first index. Two 64 x 97 f32 tiles are 49.7 KB and the
-// 16 x 256 x 6 codebook 98.3 KB more, above the 48 KB default: the launcher
-// opts in. Both variants run the same body, so on the same entry they give
-// the same bits.
+// 16 x 256 x 6 codebook 98.3 KB more (49.2 KB rounded to bf16), above the
+// 48 KB default: the launcher opts in. Both variants run the same body, so
+// on the same entry they give the same bits.
+//
+// Modes (dtypes.cuh): x is f32 or bf16 (the compute dtype, any int8 scale
+// folded in); dec is x's type or int8; the codebook is x's type. Values
+// widen to f32 on load and everything after the dot is f32, as in the TPU
+// kernel, which casts dec to x's type and accumulates in f32.
 #include "adc_tile.cuh"
 
 namespace {
 
 using namespace afis_adc;
 
-template <class Cols>
+template <class XT, class Cols>
 __global__ void __launch_bounds__(kThreads) adc_rowmax_kernel(
-    const float* __restrict__ x, const float* __restrict__ lsq, Cols cols,
+    const XT* __restrict__ x, const float* __restrict__ lsq, Cols cols,
     const float* __restrict__ rsq, const float* __restrict__ rvalid,
     float* __restrict__ best, int* __restrict__ bestj, int Lt, int B, int Rt,
     int D) {
@@ -84,49 +89,67 @@ __global__ void __launch_bounds__(kThreads) adc_rowmax_kernel(
   }
 }
 
-template <class Cols>
-int launch(const float* x, const float* lsq, Cols cols, const float* rsq,
+template <class XT, class Cols>
+int launch(const XT* x, const float* lsq, Cols cols, const float* rsq,
            const float* rvalid, float* best, int* bestj, int NL, int Lt,
            int B, int Rt, int D, void* stream) {
   if (NL <= 0 || Lt <= 0 || B <= 0 || B > 65535 || NL > 65535 || Rt <= 0
       || D <= 0)
     return (int)cudaErrorInvalidValue;
   const size_t bytes =
-      (2 * (size_t)kTile * (D + 1) + cols.smem_floats()) * sizeof(float);
+      2 * (size_t)kTile * (D + 1) * sizeof(float) + cols.smem_bytes();
   cudaError_t e = cudaFuncSetAttribute(
-      adc_rowmax_kernel<Cols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      adc_rowmax_kernel<XT, Cols>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Lt + kTile - 1) / kTile, B, NL);
-  adc_rowmax_kernel<Cols><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      x, lsq, cols, rsq, rvalid, best, bestj, Lt, B, Rt, D);
+  adc_rowmax_kernel<XT, Cols>
+      <<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+          x, lsq, cols, rsq, rvalid, best, bestj, Lt, B, Rt, D);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int afis_adc_rowmax(const float* x, const float* lsq,
-                               const float* dec, const float* rsq,
+// xtype / dtype: the operands' type codes (dtypes.cuh).
+extern "C" int afis_adc_rowmax(const void* x, const float* lsq,
+                               const void* dec, const float* rsq,
                                const float* rvalid, float* best, int* bestj,
                                int NL, int Lt, int B, int Rt, int D,
-                               void* stream) {
-  return launch(x, lsq, DecCols{dec}, rsq, rvalid, best, bestj, NL, Lt, B,
-                Rt, D, stream);
+                               int xtype, int dtype, void* stream) {
+  return afis_t::dispatch_pair(xtype, dtype, [&](auto xt, auto dt) {
+    using XT = typename decltype(xt)::type;
+    using DT = typename decltype(dt)::type;
+    return launch(static_cast<const XT*>(x), lsq,
+                  DecCols<DT>{static_cast<const DT*>(dec)}, rsq, rvalid,
+                  best, bestj, NL, Lt, B, Rt, D, stream);
+  });
 }
 
-extern "C" int afis_adc_rowmax_codes(const float* x, const float* lsq,
+// The codebook has x's type.
+extern "C" int afis_adc_rowmax_codes(const void* x, const float* lsq,
                                      const uint8_t* codes,
-                                     const float* codebook, const float* rsq,
+                                     const void* codebook, const float* rsq,
                                      const float* rvalid, float* best,
                                      int* bestj, int NL, int Lt, int B,
                                      int Rt, int S, int C, int sub_dim,
-                                     void* stream) {
+                                     int xtype, void* stream) {
   if (S <= 0 || C <= 0 || C > 256 || sub_dim <= 0)
     return (int)cudaErrorInvalidValue;
-  return launch(x, lsq, CodeCols{codes, codebook, S, C, sub_dim, nullptr},
-                rsq, rvalid, best, bestj, NL, Lt, B, Rt, S * sub_dim, stream);
+  return afis_t::dispatch_float(xtype, [&](auto xt) {
+    using XT = typename decltype(xt)::type;
+    return launch(static_cast<const XT*>(x), lsq,
+                  CodeCols<XT>{codes, static_cast<const XT*>(codebook), S, C,
+                               sub_dim, nullptr},
+                  rsq, rvalid, best, bestj, NL, Lt, B, Rt, S * sub_dim,
+                  stream);
+  });
 }
 
 extern "C" const char* afis_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
+}
+
+extern "C" const char* afis_error_name(int err) {
+  return cudaGetErrorName((cudaError_t)err);
 }

@@ -3,22 +3,31 @@
 // Replaces the JAX package's pallas_kernels.py fused_adc_screen (:1106) /
 // _adc_augmax_kernel (:1080) and, over uint8 PQ codes,
 // fused_adc_screen_codes (:1213) / _adc_screen_codes_kernel (:1174):
-//   v[i, j]  = (x_i . dec_j + (-(0.5 |dec_j|^2))) + mask_j,
-//              mask_j = 0 for a valid rolled minutia, -1e4 for an invalid one
-//   out[n, b] = sum_i max(2 max_j v[i, j] + ((6 - |x_i|^2) - tau), 0) * lv_i
-// The TPU kernel carries -|dec|^2 / 2 and the -1e4 sentinel as two
-// augmented contraction rows; here they are added after the D-long dot, in
-// the order written above. With tau = 0 the score bounds the exact texture
-// score from above.
+//   v[i, j]   = (x_i . dec_j + a1_j) + a2_j
+//   raw[i]    = max_j v[i, j], rounded to x's type
+//   out[n, b] = sum_i max(2 raw[i] + ((6 - |x_i|^2) - tau), 0) * lv_i
+// The TPU kernel carries a1 and a2 as two augmented contraction rows of
+// dec against two columns of x; the wrapper (ops.screen_aug) forms the
+// products a1_j, a2_j the contraction adds and this kernel adds them after
+// the D-long dot, in the order written above:
+//   - f32 / bf16 dec: a1 = -(|dec_j|^2 / 2) and a2 = 0 for a valid rolled
+//     minutia, -1e4 for an invalid one, both rounded to dec's type;
+//   - int8 dec (tex_int8): a1 = c1 * round(-(|dec_j|^2 / 2) / c1) with c1
+//     one scale per JAX engine block of entries, in x's type, and a2 = 0 or
+//     -127.
+// In f32 the screen is the one before the modes, bit for bit. With tau = 0
+// it bounds the exact texture score from above (up to the rounding of the
+// bf16 and int8 modes).
 //
 // Bound: operations, 2 Lt Rt D flops per pair (5.5 MFLOP at the prescreen's
 // Lt = 64, 38.5 MFLOP at Lt = 448), against the entry's 172 KB of decoded
-// descriptors or 7 KB of codes. Design: the block walks its latent rows in
-// 64-row tiles and, for each, the rolled columns in 64-column tiles
-// (adc_tile.cuh); a row's term goes to shared memory, and one thread sums
-// the Lt terms in index order, as the plain version does. Consecutive
-// blocks share the entry, so its descriptors are read from L2 for all but
-// the first latent. The codes variant adds the 98.3 KB codebook to the two
+// f32 descriptors (86 KB in bf16, 43 KB in int8) or 7 KB of codes. Design:
+// the block walks its latent rows in 64-row tiles and, for each, the rolled
+// columns in 64-column tiles (adc_tile.cuh, values widened to f32 on load);
+// a row's term goes to shared memory, and one thread sums the Lt terms in
+// index order, as the plain version does. Consecutive blocks share the
+// entry, so its descriptors are read from L2 for all but the first latent.
+// The codes variant adds the codebook (98.3 KB, 49.2 KB in bf16) to the two
 // 24.8 KB tiles; the launcher opts in to the shared memory.
 #include "adc_tile.cuh"
 
@@ -26,11 +35,11 @@ namespace {
 
 using namespace afis_adc;
 
-template <class Cols>
+template <class XT, class Cols>
 __global__ void __launch_bounds__(kThreads) adc_screen_kernel(
-    const float* __restrict__ x, const float* __restrict__ lsq,
+    const XT* __restrict__ x, const float* __restrict__ lsq,
     const float* __restrict__ lvalid, Cols cols,
-    const float* __restrict__ rsq, const float* __restrict__ rvalid,
+    const float* __restrict__ a1, const float* __restrict__ a2,
     float* __restrict__ out, int NL, int Lt, int B, int Rt, int D,
     float tau) {
   extern __shared__ float sm[];
@@ -57,10 +66,10 @@ __global__ void __launch_bounds__(kThreads) adc_screen_kernel(
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + tc * 4 + j;
         if (c >= Rt) break;
-        const float nh = -(0.5f * rsq[(size_t)b * Rt + c]);
-        const float mk = rvalid[(size_t)b * Rt + c] > 0.f ? 0.f : -1e4f;
+        const float u = a1[(size_t)b * Rt + c];
+        const float w = a2[(size_t)b * Rt + c];
         for (int i = 0; i < 4; ++i)
-          bv[i] = fmaxf(bv[i], (acc[i][j] + nh) + mk);
+          bv[i] = fmaxf(bv[i], (acc[i][j] + u) + w);
       }
     }
     for (int i = 0; i < 4; ++i) {
@@ -70,7 +79,8 @@ __global__ void __launch_bounds__(kThreads) adc_screen_kernel(
       if (tc == 0 && r < Lt) {
         const size_t o = (size_t)n * Lt + r;
         const float t6 = (6.f - lsq[o]) - tau;
-        term[r] = fmaxf(2.f * bv[i] + t6, 0.f) * lvalid[o];
+        const float raw = afis_t::round_to<XT>(bv[i]);
+        term[r] = fmaxf(2.f * raw + t6, 0.f) * lvalid[o];
       }
     }
   }
@@ -82,45 +92,59 @@ __global__ void __launch_bounds__(kThreads) adc_screen_kernel(
   }
 }
 
-template <class Cols>
-int launch(const float* x, const float* lsq, const float* lvalid, Cols cols,
-           const float* rsq, const float* rvalid, float* out, int NL, int Lt,
+template <class XT, class Cols>
+int launch(const XT* x, const float* lsq, const float* lvalid, Cols cols,
+           const float* a1, const float* a2, float* out, int NL, int Lt,
            int B, int Rt, int D, float tau, void* stream) {
   if (NL <= 0 || Lt <= 0 || B <= 0 || Rt <= 0 || D <= 0
       || (long long)NL * B > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = (2 * (size_t)kTile * (D + 1) + Lt
-                        + cols.smem_floats()) * sizeof(float);
+  const size_t bytes = (2 * (size_t)kTile * (D + 1) + Lt) * sizeof(float)
+      + cols.smem_bytes();
   cudaError_t e = cudaFuncSetAttribute(
-      adc_screen_kernel<Cols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      adc_screen_kernel<XT, Cols>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  adc_screen_kernel<Cols><<<NL * B, kThreads, bytes, (cudaStream_t)stream>>>(
-      x, lsq, lvalid, cols, rsq, rvalid, out, NL, Lt, B, Rt, D, tau);
+  adc_screen_kernel<XT, Cols>
+      <<<NL * B, kThreads, bytes, (cudaStream_t)stream>>>(
+          x, lsq, lvalid, cols, a1, a2, out, NL, Lt, B, Rt, D, tau);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int afis_adc_screen(const float* x, const float* lsq,
-                               const float* lvalid, const float* dec,
-                               const float* rsq, const float* rvalid,
-                               float* out, int NL, int Lt, int B, int Rt,
-                               int D, float tau, void* stream) {
-  return launch(x, lsq, lvalid, DecCols{dec}, rsq, rvalid, out, NL, Lt, B,
-                Rt, D, tau, stream);
+// xtype / dtype: the operands' type codes (dtypes.cuh); a1 / a2 [B, Rt].
+extern "C" int afis_adc_screen(const void* x, const float* lsq,
+                               const float* lvalid, const void* dec,
+                               const float* a1, const float* a2, float* out,
+                               int NL, int Lt, int B, int Rt, int D,
+                               float tau, int xtype, int dtype,
+                               void* stream) {
+  return afis_t::dispatch_pair(xtype, dtype, [&](auto xt, auto dt) {
+    using XT = typename decltype(xt)::type;
+    using DT = typename decltype(dt)::type;
+    return launch(static_cast<const XT*>(x), lsq, lvalid,
+                  DecCols<DT>{static_cast<const DT*>(dec)}, a1, a2, out, NL,
+                  Lt, B, Rt, D, tau, stream);
+  });
 }
 
-extern "C" int afis_adc_screen_codes(const float* x, const float* lsq,
+// The codebook has x's type.
+extern "C" int afis_adc_screen_codes(const void* x, const float* lsq,
                                      const float* lvalid,
                                      const uint8_t* codes,
-                                     const float* codebook, const float* rsq,
-                                     const float* rvalid, float* out, int NL,
+                                     const void* codebook, const float* a1,
+                                     const float* a2, float* out, int NL,
                                      int Lt, int B, int Rt, int S, int C,
-                                     int sub_dim, float tau, void* stream) {
+                                     int sub_dim, float tau, int xtype,
+                                     void* stream) {
   if (S <= 0 || C <= 0 || C > 256 || sub_dim <= 0)
     return (int)cudaErrorInvalidValue;
-  return launch(x, lsq, lvalid,
-                CodeCols{codes, codebook, S, C, sub_dim, nullptr}, rsq,
-                rvalid, out, NL, Lt, B, Rt, S * sub_dim, tau, stream);
+  return afis_t::dispatch_float(xtype, [&](auto xt) {
+    using XT = typename decltype(xt)::type;
+    return launch(static_cast<const XT*>(x), lsq, lvalid,
+                  CodeCols<XT>{codes, static_cast<const XT*>(codebook), S, C,
+                               sub_dim, nullptr},
+                  a1, a2, out, NL, Lt, B, Rt, S * sub_dim, tau, stream);
+  });
 }

@@ -17,16 +17,19 @@
 // entry too large for shared memory (R above ~480 at D = 96), come in
 // 96-column chunks, reloaded per template. The running row maxima [P] and
 // column maxima [R] live in shared memory; two threads then sum the relu'd
-// maxima in index order, as the plain version does.
+// maxima in index order, as the plain version does. In the bf16 and int8
+// modes the loaders widen the descriptors to f32 (the TPU kernel casts the
+// gallery tile to the latent's type and accumulates in f32).
 #include "minu_tile.cuh"
 
 namespace {
 
 using namespace afis_minu;
 
+template <class LT, class RT>
 __global__ void __launch_bounds__(kThreads) minu_screen_kernel(
-    const float* __restrict__ ldes, const float* __restrict__ lvalid,
-    const float* __restrict__ rdes, const float* __restrict__ rvalid,
+    const LT* __restrict__ ldes, const float* __restrict__ lvalid,
+    const RT* __restrict__ rdes, const float* __restrict__ rvalid,
     float* __restrict__ out, int NT, int P, int B, int R, int D, int RC) {
   extern __shared__ float sm[];
   const int DP = D + 1;
@@ -78,10 +81,11 @@ __global__ void __launch_bounds__(kThreads) minu_screen_kernel(
 
 }  // namespace
 
-extern "C" int afis_minu_screen(const float* ldes, const float* lvalid,
-                                const float* rdes, const float* rvalid,
+// ltype / rtype: the descriptors' type codes (dtypes.cuh).
+extern "C" int afis_minu_screen(const void* ldes, const float* lvalid,
+                                const void* rdes, const float* rvalid,
                                 float* out, int NT, int P, int B, int R,
-                                int D, void* stream) {
+                                int D, int ltype, int rtype, void* stream) {
   if (NT <= 0 || P <= 0 || B <= 0 || R <= 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
   size_t bytes = 0;
@@ -89,11 +93,17 @@ extern "C" int afis_minu_screen(const float* ldes, const float* lvalid,
     return (size_t)(rc + kRows) * (D + 1) + P + R + 16 * kCols + 2;
   }, &bytes);
   if (RC == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      minu_screen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  minu_screen_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
-      ldes, lvalid, rdes, rvalid, out, NT, P, B, R, D, RC);
-  return (int)cudaGetLastError();
+  return afis_t::dispatch_pair(ltype, rtype, [&](auto lt, auto rt) {
+    using LT = typename decltype(lt)::type;
+    using RT = typename decltype(rt)::type;
+    cudaError_t e = cudaFuncSetAttribute(
+        minu_screen_kernel<LT, RT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    minu_screen_kernel<LT, RT>
+        <<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+            static_cast<const LT*>(ldes), lvalid,
+            static_cast<const RT*>(rdes), rvalid, out, NT, P, B, R, D, RC);
+    return (int)cudaGetLastError();
+  });
 }

@@ -20,7 +20,8 @@
 // (one thread per column) in index order; pass 2 forms the product again,
 // normalizes it and folds it into the row and column maxima. Recomputing
 // the tile costs less than keeping P x R floats, and keeps R = 1000 within
-// shared memory.
+// shared memory. In the bf16 and int8 modes the loaders widen the
+// descriptors to f32, as the TPU kernel casts them and accumulates in f32.
 #include "minu_tile.cuh"
 
 namespace {
@@ -29,9 +30,10 @@ using namespace afis_minu;
 
 constexpr int kStoreStride = kCols + 1;   // tile store rows, bank-spread
 
+template <class LT, class RT>
 __global__ void __launch_bounds__(kThreads) minu_screen_norm_kernel(
-    const float* __restrict__ ldes, const float* __restrict__ lvalid,
-    const float* __restrict__ rdes, const float* __restrict__ rvalid,
+    const LT* __restrict__ ldes, const float* __restrict__ lvalid,
+    const RT* __restrict__ rdes, const float* __restrict__ rvalid,
     float* __restrict__ out, int NT, int P, int B, int R, int D, int RC) {
   extern __shared__ float sm[];
   const int DP = D + 1;
@@ -131,10 +133,12 @@ __global__ void __launch_bounds__(kThreads) minu_screen_norm_kernel(
 
 }  // namespace
 
-extern "C" int afis_minu_screen_norm(const float* ldes, const float* lvalid,
-                                     const float* rdes, const float* rvalid,
+// ltype / rtype: the descriptors' type codes (dtypes.cuh).
+extern "C" int afis_minu_screen_norm(const void* ldes, const float* lvalid,
+                                     const void* rdes, const float* rvalid,
                                      float* out, int NT, int P, int B, int R,
-                                     int D, void* stream) {
+                                     int D, int ltype, int rtype,
+                                     void* stream) {
   if (NT <= 0 || P <= 0 || B <= 0 || R <= 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
   size_t bytes = 0;
@@ -143,11 +147,17 @@ extern "C" int afis_minu_screen_norm(const float* ldes, const float* lvalid,
         + 2 * (P + R) + 16 * kCols + 2;
   }, &bytes);
   if (RC == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      minu_screen_norm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  minu_screen_norm_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
-      ldes, lvalid, rdes, rvalid, out, NT, P, B, R, D, RC);
-  return (int)cudaGetLastError();
+  return afis_t::dispatch_pair(ltype, rtype, [&](auto lt, auto rt) {
+    using LT = typename decltype(lt)::type;
+    using RT = typename decltype(rt)::type;
+    cudaError_t e = cudaFuncSetAttribute(
+        minu_screen_norm_kernel<LT, RT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    minu_screen_norm_kernel<LT, RT>
+        <<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+            static_cast<const LT*>(ldes), lvalid,
+            static_cast<const RT*>(rdes), rvalid, out, NT, P, B, R, D, RC);
+    return (int)cudaGetLastError();
+  });
 }

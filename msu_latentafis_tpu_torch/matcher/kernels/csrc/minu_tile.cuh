@@ -5,13 +5,19 @@
 // index order with one rounding per product and per sum. Rows are padded to
 // D + 1 in shared memory. The block holds the whole entry when it fits in
 // shared memory and otherwise one 96-column chunk at a time, so any R runs.
+// The descriptors are f32 or bf16 on the latent side and the latent's type
+// or int8 on the gallery side (dtypes.cuh); the loaders widen them to f32.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "dtypes.cuh"
+
 namespace afis_minu {
+
+using afis_t::widen;
 
 constexpr int kRows = 64;      // latent rows per tile (16 groups of 4)
 constexpr int kCols = 96;      // rolled columns per tile (16 groups of 6)
@@ -19,7 +25,8 @@ constexpr int kThreads = 256;
 
 // xs[p][d] = ldes[t, p0 + p, d] (times lvalid[t, p0 + p] when lvalid is
 // given) for p < kRows; zero past P.
-__device__ inline void load_rows(float* xs, const float* __restrict__ ldes,
+template <class LT>
+__device__ inline void load_rows(float* xs, const LT* __restrict__ ldes,
                                  const float* __restrict__ lvalid, int t,
                                  int p0, int P, int D) {
   const int DP = D + 1;
@@ -28,7 +35,7 @@ __device__ inline void load_rows(float* xs, const float* __restrict__ ldes,
     const size_t row = (size_t)t * P + p0 + p;
     float v = 0.f;
     if (p0 + p < P) {
-      v = ldes[row * D + d];
+      v = widen(ldes[row * D + d]);
       if (lvalid != nullptr) v = v * lvalid[row];
     }
     xs[p * DP + d] = v;
@@ -37,7 +44,8 @@ __device__ inline void load_rows(float* xs, const float* __restrict__ ldes,
 
 // rs[c][d] = rdes[b, c0 + c, d] (times rvalid[b, c0 + c] when rvalid is
 // given) for c < n; zero past R.
-__device__ inline void load_cols(float* rs, const float* __restrict__ rdes,
+template <class RT>
+__device__ inline void load_cols(float* rs, const RT* __restrict__ rdes,
                                  const float* __restrict__ rvalid, int b,
                                  int c0, int n, int R, int D) {
   const int DP = D + 1;
@@ -46,7 +54,7 @@ __device__ inline void load_cols(float* rs, const float* __restrict__ rdes,
     const size_t col = (size_t)b * R + c0 + c;
     float v = 0.f;
     if (c0 + c < R) {
-      v = rdes[col * D + d];
+      v = widen(rdes[col * D + d]);
       if (rvalid != nullptr) v = v * rvalid[col];
     }
     rs[c * DP + d] = v;

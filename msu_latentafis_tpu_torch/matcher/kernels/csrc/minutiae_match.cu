@@ -34,13 +34,19 @@
 //     their place. As many blocks as the card holds at once walk the pairs.
 // The band rank counts, per band member, the members of earlier latent rows
 // (a prefix over rows) and those of its own row with a smaller column.
+// Modes (dtypes.cuh): the latent descriptors are f32 or bf16 (any int8
+// scale folded in), the gallery's the latent's type or int8; both widen to
+// f32 as they enter the tiles, as the TPU kernel casts the gallery tile
+// and accumulates in f32.
 #include <algorithm>
 
+#include "dtypes.cuh"
 #include "filter_body.cuh"
 
 namespace {
 
 using namespace afis;
+using afis_t::widen;
 
 // Offsets (floats) of one pair's arrays: in shared memory, or in the
 // block's workspace slice when ``global``.
@@ -101,9 +107,10 @@ inline MinuLayout minu_layout(int P, int R, int D, int K, int row_cap,
   return m;
 }
 
+template <class LT, class RT>
 __global__ void __launch_bounds__(kThreads) minutiae_match_kernel(
-    const float* __restrict__ ldes, const float* __restrict__ lvalid,
-    const float* __restrict__ rdes, const float* __restrict__ rvalid,
+    const LT* __restrict__ ldes, const float* __restrict__ lvalid,
+    const RT* __restrict__ rdes, const float* __restrict__ rvalid,
     const float* __restrict__ lpack, const float* __restrict__ rpack,
     float* __restrict__ out, float* __restrict__ ws, const MinuLayout L,
     int NT, int P, int B, int R, int D, int K, int row_cap, int lookup,
@@ -137,14 +144,14 @@ __global__ void __launch_bounds__(kThreads) minutiae_match_kernel(
       __syncthreads();
       for (int idx = threadIdx.x; idx < np * D; idx += blockDim.x) {
         const int p = idx / D, d = idx - p * D;
-        lds[p * DP + d] = ldes[((size_t)t * P + p0 + p) * D + d];
+        lds[p * DP + d] = widen(ldes[((size_t)t * P + p0 + p) * D + d]);
       }
       for (int r0 = 0; r0 < R; r0 += L.TR) {
         const int nr = min(L.TR, R - r0);
         __syncthreads();
         for (int idx = threadIdx.x; idx < nr * D; idx += blockDim.x) {
           const int r = idx / D, d = idx - r * D;
-          rds[r * DP + d] = rdes[((size_t)b * R + r0 + r) * D + d];
+          rds[r * DP + d] = widen(rdes[((size_t)b * R + r0 + r) * D + d]);
         }
         __syncthreads();
         const int PG = (np + 3) / 4;
@@ -300,34 +307,46 @@ extern "C" long long afis_minutiae_match_workspace(int P, int R, int D,
 }
 
 // Blocks of the workspace store the card runs at once (the grid of such a
-// launch and the number of workspace slices); 0 on error.
+// launch and the number of workspace slices) for the descriptor types
+// ltype / rtype (dtypes.cuh); 0 on error.
 extern "C" int afis_minutiae_match_blocks(int P, int R, int D, int K,
-                                          int row_cap) {
-  if (!valid_args(P, R, D, K, row_cap)) return 0;
+                                          int row_cap, int ltype, int rtype) {
+  if (!valid_args(P, R, D, K, row_cap) || !afis_t::valid_pair(ltype, rtype))
+    return 0;
   const MinuLayout L = minu_layout(P, R, D, K, row_cap, optin_limit_words());
   const size_t bytes = L.smem_words * 4;
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess
       || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-          != cudaSuccess
-      || cudaFuncSetAttribute(minutiae_match_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes) != cudaSuccess
-      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, minutiae_match_kernel, kThreads, bytes) != cudaSuccess)
+          != cudaSuccess)
     return 0;
+  const int per_sm = afis_t::dispatch_pair(ltype, rtype, [&](auto lt,
+                                                             auto rt) {
+    using LT = typename decltype(lt)::type;
+    using RT = typename decltype(rt)::type;
+    int n = 0;
+    if (cudaFuncSetAttribute(minutiae_match_kernel<LT, RT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes) != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &n, minutiae_match_kernel<LT, RT>, kThreads, bytes)
+            != cudaSuccess)
+      return 0;
+    return n;
+  });
   return per_sm * sms;
 }
 
 // ``ws`` holds ``ws_blocks`` slices of afis_minutiae_match_workspace()
 // floats when that is not 0 (the grid is then ws_blocks); else it is unused.
-extern "C" int afis_minutiae_match(const float* ldes, const float* lvalid,
-                                   const float* rdes, const float* rvalid,
+// ltype / rtype: the descriptors' type codes (dtypes.cuh).
+extern "C" int afis_minutiae_match(const void* ldes, const float* lvalid,
+                                   const void* rdes, const float* rvalid,
                                    const float* lpack, const float* rpack,
                                    float* out, float* ws, int ws_blocks,
                                    int NT, int P, int B, int R, int D, int K,
                                    int row_cap, int lookup, int dist_iters,
-                                   void* stream) {
+                                   int ltype, int rtype, void* stream) {
   if (NT <= 0 || B <= 0 || dist_iters < 0
       || !valid_args(P, R, D, K, row_cap))
     return (int)cudaErrorInvalidValue;
@@ -337,12 +356,18 @@ extern "C" int afis_minutiae_match(const float* ldes, const float* lvalid,
       || (L.global && (ws == nullptr || ws_blocks <= 0)))
     return (int)cudaErrorInvalidValue;
   const int grid = L.global ? std::min(ws_blocks, NT * B) : NT * B;
-  cudaError_t e = cudaFuncSetAttribute(
-      minutiae_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  minutiae_match_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      ldes, lvalid, rdes, rvalid, lpack, rpack, out, ws, L, NT, P, B, R, D,
-      K, row_cap, lookup, dist_iters);
-  return (int)cudaGetLastError();
+  return afis_t::dispatch_pair(ltype, rtype, [&](auto lt, auto rt) {
+    using LT = typename decltype(lt)::type;
+    using RT = typename decltype(rt)::type;
+    cudaError_t e = cudaFuncSetAttribute(
+        minutiae_match_kernel<LT, RT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    minutiae_match_kernel<LT, RT>
+        <<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+            static_cast<const LT*>(ldes), lvalid,
+            static_cast<const RT*>(rdes), rvalid, lpack, rpack, out, ws, L,
+            NT, P, B, R, D, K, row_cap, lookup, dist_iters);
+    return (int)cudaGetLastError();
+  });
 }

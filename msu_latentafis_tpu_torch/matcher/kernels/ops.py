@@ -10,6 +10,14 @@ The plain versions are the kernels' specification: the same arithmetic in
 the same order, so a kernel and its plain version agree bit for bit on the
 card (``chip_smoke.py`` holds them to rtol 1e-5 / atol 1e-4).
 
+Modes: the descriptor operands come in the types the JAX engine gives its
+kernels: the latent side f32 or bf16 (the compute dtype, any int8 scale
+folded in), the gallery side the latent's type or int8 (``tex_int8``,
+``minu_int8``), the codebook of a codes kernel the latent's type. Kernels
+and plain versions widen them to f32 and round where the JAX code rounds:
+the screen's augmented rows in the gallery's type (``screen_aug``) and its
+row maxima in the latent's type. Any other pair of types raises.
+
 | wrapper | TPU kernel it replaces (JAX package, matcher/pallas_kernels.py) |
 | --- | --- |
 | adc_rowmax | fused_adc_rowmax :1489 (_adc_rowmax_kernel :29) |
@@ -23,6 +31,10 @@ card (``chip_smoke.py`` holds them to rtol 1e-5 / atol 1e-4).
 | graph_filter_packed | fused_graph_filter_packed :456 (_filter_body :189) |
 | graph_filter | fused_graph_filter :410 (the same CUDA kernel as graph_filter_packed) |
 | graph_filter_infuse | fused_graph_filter_infuse :551 (_make_filter_gather_kernel :494) |
+| screen_t_bf16 | scripts/exp_screen_mfu.py :154 (kernel_bf16 :89) |
+| screen_t_int8 | scripts/exp_screen_mfu.py :124 (kernel_int8 :101) |
+| h1_probe | scripts/microbench_h1_probe.py :98 (k_bcast :51, k_matmul :62, k_gram :79) |
+| legality_canary | tests/test_mosaic_legality.py :44 (the block-legality canary) |
 
 The ``_codes`` variants take uint8 PQ codes [B, Rt, S] and the codebook
 [S, C, sub_dim] in place of predecoded descriptors; their plain versions
@@ -52,7 +64,11 @@ MAX_K = 256              # filter slots a thread block holds (8 mask words)
 KERNELS = ("adc_rowmax", "texture_match", "minutiae_match", "minu_screen",
            "adc_screen", "adc_screen_codes", "adc_rowmax_codes",
            "minu_screen_norm", "graph_filter_packed", "graph_filter",
-           "graph_filter_infuse")
+           "graph_filter_infuse", "screen_t_bf16", "screen_t_int8",
+           "h1_probe", "legality_canary")
+# operand type -> the type code of the CUDA launchers (csrc/dtypes.cuh)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+FLOATS = (torch.float32, torch.bfloat16)
 
 
 def launch_counts() -> dict:
@@ -75,6 +91,27 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_pair(lname: str, lat: torch.Tensor, gname: str,
+                gal: torch.Tensor) -> None:
+    """The operand types the JAX engine produces: the latent side f32 or
+    bf16, the gallery side the latent's type or int8."""
+    if lat.dtype not in FLOATS:
+        raise TypeError(f"{lname}: dtype {lat.dtype}, expected float32 or "
+                        f"bfloat16")
+    if gal.dtype not in (lat.dtype, torch.int8):
+        raise TypeError(f"{gname}: dtype {gal.dtype}, expected {lat.dtype} "
+                        f"or int8 beside {lname} in {lat.dtype}")
+
+
+def true_div(a: torch.Tensor, b) -> torch.Tensor:
+    """a / b with one correctly rounded division per element. A Python
+    scalar divisor would let PyTorch's CUDA kernel multiply by its
+    reciprocal instead, one rounding away from the JAX code's division."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.full_like(a, b)
+    return a / b
+
+
 def _is_cuda(device: torch.device) -> bool:
     if device.type == "cpu":
         return False
@@ -88,15 +125,15 @@ def _stream(device) -> int:
 
 
 def _check_codes(codes: torch.Tensor, codebook: torch.Tensor, B: int,
-                 Rt: int, D: int, device) -> Tuple[int, int, int]:
+                 Rt: int, D: int, x_dtype, device) -> Tuple[int, int, int]:
     """Shapes of a codes operand [B, Rt, S] u8 and its codebook [S, C, d]
-    with S * d == D; returns (S, C, d)."""
+    (in x's type) with S * d == D; returns (S, C, d)."""
     S, C, sd = codebook.shape
     if S * sd != D:
         raise ValueError(f"codebook {tuple(codebook.shape)} decodes to "
                          f"{S * sd} features, expected {D}")
     _check("codes", codes, (B, Rt, S), torch.uint8, device)
-    _check("codebook", codebook, (S, C, sd), torch.float32, device)
+    _check("codebook", codebook, (S, C, sd), x_dtype, device)
     return S, C, sd
 
 
@@ -107,7 +144,8 @@ def _check_codes(codes: torch.Tensor, codebook: torch.Tensor, B: int,
 def adc_rowmax_plain(x, lsq, dec, rsq, rvalid) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
     """Row max / first argmax of simi = 2 x.dec + (6 - |x|^2 - |c|^2), with
-    invalid rolled columns pushed down by (v - 1) * 1e30."""
+    invalid rolled columns pushed down by (v - 1) * 1e30; x and dec widened
+    to f32."""
     simi = 2.0 * seq_dots(x, dec) + ((6.0 - lsq)[:, None, :, None] - rsq[None, :, None, :])
     simi = simi + (rvalid[None, :, None, :] - 1.0) * -NEG_BIG
     best = simi.max(dim=-1).values
@@ -121,18 +159,20 @@ def adc_rowmax(x: torch.Tensor, lsq: torch.Tensor, dec: torch.Tensor,
                rsq: torch.Tensor, rvalid: torch.Tensor):
     """ADC texture similarity row maxima without materializing it.
 
-    x [NL, Lt, D] latent texture descriptors, lsq [NL, Lt] their squared
-    norms; dec [B, Rt, D] decoded gallery descriptors, rsq [B, Rt], rvalid
-    [B, Rt] f32 0/1. Returns best [NL, B, Lt] f32 and bestj i32 (first
-    index on ties); rows with no valid rolled column come back <= -1e30.
+    x [NL, Lt, D] latent texture descriptors (f32 or bf16), lsq [NL, Lt]
+    their squared norms (f32); dec [B, Rt, D] decoded gallery descriptors
+    (x's type or int8), rsq [B, Rt], rvalid [B, Rt] f32 0/1. Returns best
+    [NL, B, Lt] f32 and bestj i32 (first index on ties); rows with no valid
+    rolled column come back <= -1e30.
     """
     NL, Lt, D = x.shape
     B, Rt, _ = dec.shape
     dev = x.device
     f32 = torch.float32
-    _check("x", x, (NL, Lt, D), f32, dev)
+    _check_pair("x", x, "dec", dec)
+    _check("x", x, (NL, Lt, D), x.dtype, dev)
     _check("lsq", lsq, (NL, Lt), f32, dev)
-    _check("dec", dec, (B, Rt, D), f32, dev)
+    _check("dec", dec, (B, Rt, D), dec.dtype, dev)
     _check("rsq", rsq, (B, Rt), f32, dev)
     _check("rvalid", rvalid, (B, Rt), f32, dev)
     if not _is_cuda(dev):
@@ -142,7 +182,8 @@ def adc_rowmax(x: torch.Tensor, lsq: torch.Tensor, dec: torch.Tensor,
     lib = _build.load()
     err = lib.afis_adc_rowmax(
         *(t.data_ptr() for t in (x, lsq, dec, rsq, rvalid, best, bestj)),
-        NL, Lt, B, Rt, D, _stream(dev))
+        NL, Lt, B, Rt, D, DTYPE_CODE[x.dtype], DTYPE_CODE[dec.dtype],
+        _stream(dev))
     _build.check(err, "adc_rowmax")
     adc_rowmax.launches += 1
     return best, bestj
@@ -159,15 +200,16 @@ def adc_rowmax_codes(x: torch.Tensor, lsq: torch.Tensor, codes: torch.Tensor,
                      codebook: torch.Tensor, rsq: torch.Tensor,
                      rvalid: torch.Tensor):
     """``adc_rowmax`` over uint8 PQ codes [B, Rt, S] and the codebook
-    [S, C, d] (S * d = D): the same best / bestj, bit for bit, as
-    ``adc_rowmax`` on ``decode_pq(codes, codebook)``."""
+    [S, C, d] in x's type (S * d = D): the same best / bestj, bit for bit,
+    as ``adc_rowmax`` on ``decode_pq(codes, codebook)``."""
     NL, Lt, D = x.shape
     B, Rt = rsq.shape
     dev = x.device
     f32 = torch.float32
-    _check("x", x, (NL, Lt, D), f32, dev)
+    _check_pair("x", x, "x", x)
+    _check("x", x, (NL, Lt, D), x.dtype, dev)
     _check("lsq", lsq, (NL, Lt), f32, dev)
-    S, C, sd = _check_codes(codes, codebook, B, Rt, D, dev)
+    S, C, sd = _check_codes(codes, codebook, B, Rt, D, x.dtype, dev)
     _check("rsq", rsq, (B, Rt), f32, dev)
     _check("rvalid", rvalid, (B, Rt), f32, dev)
     if not _is_cuda(dev):
@@ -178,7 +220,7 @@ def adc_rowmax_codes(x: torch.Tensor, lsq: torch.Tensor, codes: torch.Tensor,
     err = lib.afis_adc_rowmax_codes(
         *(t.data_ptr() for t in (x, lsq, codes, codebook, rsq, rvalid, best,
                                  bestj)),
-        NL, Lt, B, Rt, S, C, sd, _stream(dev))
+        NL, Lt, B, Rt, S, C, sd, DTYPE_CODE[x.dtype], _stream(dev))
     _build.check(err, "adc_rowmax_codes")
     adc_rowmax_codes.launches += 1
     return best, bestj
@@ -191,17 +233,53 @@ adc_rowmax_codes.launches = 0
 # screens
 # ---------------------------------------------------------------------------
 
-def adc_screen_plain(x, lsq, lvalid, dec, rsq, rvalid, tau=0.0):
-    """sum_i max(2 max_j ((x_i.dec_j + -(rsq_j / 2)) + mask_j)
-    + ((6 - lsq_i) - tau), 0) * lvalid_i, the sum in row order; mask_j is
-    0 for a valid rolled column and -1e4 for an invalid one."""
-    nh = -(0.5 * rsq)
-    mask = torch.where(rvalid > 0, torch.zeros_like(rvalid),
-                       torch.full_like(rvalid, SCREEN_SENT))
-    v = (seq_dots(x, dec) + nh[None, :, None, :]) + mask[None, :, None, :]
-    best = v.max(dim=-1).values                          # [NL, B, Lt]
+def screen_aug(rsq: torch.Tensor, rvalid: torch.Tensor, x_dtype,
+               dec_dtype, block: int = 0) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The two terms [B, Rt] f32 that the TPU screen adds to every dot
+    through its augmented contraction rows (``fused_adc_screen``), each the
+    product of an aug row of the gallery side and a column of x:
+
+    - f32 / bf16 gallery: a1 = -(rsq / 2) and a2 = 0 (valid) / -1e4
+      (invalid), both rounded to the gallery's type (x's columns are 1);
+    - int8 gallery (tex_int8): c1 = max(rsq / 2) / 126 + 1e-9 over each
+      group of ``block`` entries in the order given (one call of the JAX
+      screen per engine block), a1 = c1 rounded to x's type times
+      clip(round(-(rsq / 2) / c1), -127, 127), a2 = 0 / -127.
+    """
+    rsqm = rsq * 0.5
+    if dec_dtype != torch.int8:
+        a1 = (-rsqm).to(dec_dtype).float()
+        a2 = torch.where(rvalid > 0, torch.zeros_like(rvalid),
+                         torch.full_like(rvalid, SCREEN_SENT))
+        a2 = a2.to(dec_dtype).float()
+        return a1, a2
+    B, Rt = rsq.shape
+    if block <= 0 or B % block:
+        raise ValueError(f"an int8 screen needs block > 0 dividing B={B} "
+                         f"(the JAX engine's block_size), got {block}")
+    c1 = true_div(rsqm.reshape(B // block, block * Rt).max(dim=1).values,
+                  126.0) + 1e-9
+    c1 = c1.repeat_interleave(block)[:, None]                    # [B, 1]
+    q1 = torch.clamp(torch.round(true_div(-rsqm, c1.expand(B, Rt))),
+                     -127.0, 127.0)
+    a1 = c1.to(x_dtype).float() * q1
+    a2 = torch.where(rvalid > 0, torch.zeros_like(rvalid),
+                     torch.full_like(rvalid, -127.0))
+    return a1.contiguous(), a2
+
+
+def adc_screen_plain(x, lsq, lvalid, dec, rsq, rvalid, tau=0.0, block=0):
+    """sum_i max(2 raw_i + ((6 - lsq_i) - tau), 0) * lvalid_i, the sum in
+    row order, with raw_i = max_j ((x_i . dec_j + a1_j) + a2_j) rounded to
+    x's type (the TPU screen's output type) and a1, a2 the terms of
+    ``screen_aug``; in f32: a1 = -(rsq / 2), a2 = 0 for a valid rolled
+    column and -1e4 for an invalid one."""
+    a1, a2 = screen_aug(rsq, rvalid, x.dtype, dec.dtype, block)
+    v = (seq_dots(x, dec) + a1[None, :, None, :]) + a2[None, :, None, :]
+    raw = v.max(dim=-1).values.to(x.dtype).float()       # [NL, B, Lt]
     t6 = (6.0 - lsq) - tau
-    term = torch.clamp(2.0 * best + t6[:, None, :], min=0.0) \
+    term = torch.clamp(2.0 * raw + t6[:, None, :], min=0.0) \
         * lvalid[:, None, :]
     return seq_sum(term, dim=2)
 
@@ -211,7 +289,8 @@ def _adc_screen_args(x, lsq, lvalid, rsq, rvalid):
     B, Rt = rsq.shape
     dev = x.device
     f32 = torch.float32
-    _check("x", x, (NL, Lt, D), f32, dev)
+    _check_pair("x", x, "x", x)
+    _check("x", x, (NL, Lt, D), x.dtype, dev)
     _check("lsq", lsq, (NL, Lt), f32, dev)
     _check("lvalid", lvalid, (NL, Lt), f32, dev)
     _check("rsq", rsq, (B, Rt), f32, dev)
@@ -221,22 +300,27 @@ def _adc_screen_args(x, lsq, lvalid, rsq, rvalid):
 
 def adc_screen(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
                dec: torch.Tensor, rsq: torch.Tensor, rvalid: torch.Tensor,
-               tau: float = 0.0) -> torch.Tensor:
+               tau: float = 0.0, block: int = 0) -> torch.Tensor:
     """Texture screening score [NL, B] (an upper bound on the exact texture
-    score at tau = 0).
+    score at tau = 0, up to the rounding of the bf16 and int8 modes).
 
-    x [NL, Lt, D], lsq / lvalid [NL, Lt] f32; dec [B, Rt, D] predecoded
-    gallery descriptors, rsq / rvalid [B, Rt] f32.
+    x [NL, Lt, D] (f32 or bf16), lsq / lvalid [NL, Lt] f32; dec [B, Rt, D]
+    predecoded gallery descriptors (x's type or int8), rsq / rvalid [B, Rt]
+    f32. An int8 gallery takes ``block``, the JAX engine's block size: one
+    scale of the -rsq / 2 row per group of that many entries.
     """
     NL, Lt, D, B, Rt, dev = _adc_screen_args(x, lsq, lvalid, rsq, rvalid)
-    _check("dec", dec, (B, Rt, D), torch.float32, dev)
+    _check_pair("x", x, "dec", dec)
+    _check("dec", dec, (B, Rt, D), dec.dtype, dev)
     if not _is_cuda(dev):
-        return adc_screen_plain(x, lsq, lvalid, dec, rsq, rvalid, tau)
+        return adc_screen_plain(x, lsq, lvalid, dec, rsq, rvalid, tau, block)
+    a1, a2 = screen_aug(rsq, rvalid, x.dtype, dec.dtype, block)
     out = torch.empty((NL, B), dtype=torch.float32, device=dev)
     lib = _build.load()
     err = lib.afis_adc_screen(
-        *(t.data_ptr() for t in (x, lsq, lvalid, dec, rsq, rvalid, out)),
-        NL, Lt, B, Rt, D, float(tau), _stream(dev))
+        *(t.data_ptr() for t in (x, lsq, lvalid, dec, a1, a2, out)),
+        NL, Lt, B, Rt, D, float(tau), DTYPE_CODE[x.dtype],
+        DTYPE_CODE[dec.dtype], _stream(dev))
     _build.check(err, "adc_screen")
     adc_screen.launches += 1
     return out
@@ -256,18 +340,21 @@ def adc_screen_codes(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
                      rsq: torch.Tensor, rvalid: torch.Tensor,
                      tau: float = 0.0) -> torch.Tensor:
     """``adc_screen`` over uint8 PQ codes [B, Rt, S] and the codebook
-    [S, C, d]: bit for bit ``adc_screen`` on the decoded gallery."""
+    [S, C, d] in x's type: bit for bit ``adc_screen`` on the decoded
+    gallery."""
     NL, Lt, D, B, Rt, dev = _adc_screen_args(x, lsq, lvalid, rsq, rvalid)
-    S, C, sd = _check_codes(codes, codebook, B, Rt, D, dev)
+    S, C, sd = _check_codes(codes, codebook, B, Rt, D, x.dtype, dev)
     if not _is_cuda(dev):
         return adc_screen_codes_plain(x, lsq, lvalid, codes, codebook, rsq,
                                       rvalid, tau)
+    a1, a2 = screen_aug(rsq, rvalid, x.dtype, codebook.dtype)
     out = torch.empty((NL, B), dtype=torch.float32, device=dev)
     lib = _build.load()
     err = lib.afis_adc_screen_codes(
-        *(t.data_ptr() for t in (x, lsq, lvalid, codes, codebook, rsq, rvalid,
+        *(t.data_ptr() for t in (x, lsq, lvalid, codes, codebook, a1, a2,
                                  out)),
-        NL, Lt, B, Rt, S, C, sd, float(tau), _stream(dev))
+        NL, Lt, B, Rt, S, C, sd, float(tau), DTYPE_CODE[x.dtype],
+        _stream(dev))
     _build.check(err, "adc_screen_codes")
     adc_screen_codes.launches += 1
     return out
@@ -278,8 +365,10 @@ adc_screen_codes.launches = 0
 
 def minu_screen_plain(ldes, lvalid, rdes, rvalid):
     """min(sum_p relu(max_r s), sum_r relu(max_p s)) of s = the product of
-    the validity-zeroed descriptors, sums in index order."""
-    s = seq_dots(ldes * lvalid[..., None], rdes * rvalid[..., None])
+    the validity-zeroed descriptors (widened to f32), sums in index
+    order."""
+    s = seq_dots(ldes.float() * lvalid[..., None],
+                 rdes.float() * rvalid[..., None])
     rb = seq_sum(torch.clamp(s.max(dim=-1).values, min=0.0), dim=-1)
     cb = seq_sum(torch.clamp(s.max(dim=-2).values, min=0.0), dim=-1)
     return torch.minimum(rb, cb)
@@ -290,9 +379,10 @@ def _minu_screen_args(ldes, lvalid, rdes, rvalid):
     B, R, _ = rdes.shape
     dev = ldes.device
     f32 = torch.float32
-    _check("ldes", ldes, (NT, P, D), f32, dev)
+    _check_pair("ldes", ldes, "rdes", rdes)
+    _check("ldes", ldes, (NT, P, D), ldes.dtype, dev)
     _check("lvalid", lvalid, (NT, P), f32, dev)
-    _check("rdes", rdes, (B, R, D), f32, dev)
+    _check("rdes", rdes, (B, R, D), rdes.dtype, dev)
     _check("rvalid", rvalid, (B, R), f32, dev)
     return NT, P, D, B, R, dev
 
@@ -303,7 +393,8 @@ def minu_screen(ldes: torch.Tensor, lvalid: torch.Tensor, rdes: torch.Tensor,
     minutiae-template score, or with ``normalize`` the mutually normalized
     heuristic of ``minu_screen_norm``.
 
-    ldes [NT, P, D], lvalid [NT, P] f32; rdes [B, R, D], rvalid [B, R] f32.
+    ldes [NT, P, D] (f32 or bf16), lvalid [NT, P] f32; rdes [B, R, D]
+    (ldes's type or int8), rvalid [B, R] f32.
     """
     if normalize:
         return minu_screen_norm(ldes, lvalid, rdes, rvalid)
@@ -314,7 +405,8 @@ def minu_screen(ldes: torch.Tensor, lvalid: torch.Tensor, rdes: torch.Tensor,
     lib = _build.load()
     err = lib.afis_minu_screen(
         *(t.data_ptr() for t in (ldes, lvalid, rdes, rvalid, out)),
-        NT, P, B, R, D, _stream(dev))
+        NT, P, B, R, D, DTYPE_CODE[ldes.dtype], DTYPE_CODE[rdes.dtype],
+        _stream(dev))
     _build.check(err, "minu_screen")
     minu_screen.launches += 1
     return out
@@ -351,7 +443,8 @@ def minu_screen_norm(ldes: torch.Tensor, lvalid: torch.Tensor,
     lib = _build.load()
     err = lib.afis_minu_screen_norm(
         *(t.data_ptr() for t in (ldes, lvalid, rdes, rvalid, out)),
-        NT, P, B, R, D, _stream(dev))
+        NT, P, B, R, D, DTYPE_CODE[ldes.dtype], DTYPE_CODE[rdes.dtype],
+        _stream(dev))
     _build.check(err, "minu_screen_norm")
     minu_screen_norm.launches += 1
     return out
@@ -718,18 +811,20 @@ def minutiae_match(ldes: torch.Tensor, lvalid: torch.Tensor,
                    dist_iters: int = 5) -> torch.Tensor:
     """Minutiae-template scores [NT, B].
 
-    ldes [NT, P, D], lvalid [NT, P] f32; rdes [B, R, D], rvalid [B, R]
-    f32; lpack [NT, P, 4] / rpack [B, R, 4] coordinate packs. ``row_cap``
-    candidates per latent row feed the top-K (K = min(top_n, P*R)).
+    ldes [NT, P, D] (f32 or bf16), lvalid [NT, P] f32; rdes [B, R, D]
+    (ldes's type or int8), rvalid [B, R] f32; lpack [NT, P, 4] / rpack
+    [B, R, 4] coordinate packs. ``row_cap`` candidates per latent row feed
+    the top-K (K = min(top_n, P*R)).
     """
     NT, P, D = ldes.shape
     B, R, _ = rdes.shape
     K = min(top_n, P * R)
     dev = ldes.device
     f32 = torch.float32
-    _check("ldes", ldes, (NT, P, D), f32, dev)
+    _check_pair("ldes", ldes, "rdes", rdes)
+    _check("ldes", ldes, (NT, P, D), ldes.dtype, dev)
     _check("lvalid", lvalid, (NT, P), f32, dev)
-    _check("rdes", rdes, (B, R, D), f32, dev)
+    _check("rdes", rdes, (B, R, D), rdes.dtype, dev)
     _check("rvalid", rvalid, (B, R), f32, dev)
     _check("lpack", lpack, (NT, P, 4), f32, dev)
     _check("rpack", rpack, (B, R, 4), f32, dev)
@@ -749,8 +844,9 @@ def minutiae_match(ldes: torch.Tensor, lvalid: torch.Tensor,
                          f"K={K} row_cap={row_cap}")
     ws, nblk = None, 0
     if words:
-        nblk = min(NT * B, lib.afis_minutiae_match_blocks(P, R, D, K,
-                                                          row_cap))
+        nblk = min(NT * B, lib.afis_minutiae_match_blocks(
+            P, R, D, K, row_cap, DTYPE_CODE[ldes.dtype],
+            DTYPE_CODE[rdes.dtype]))
         if nblk <= 0:
             raise RuntimeError("minutiae_match: no block fits on the card")
         ws = torch.empty((nblk * words,), dtype=f32, device=dev)
@@ -759,10 +855,230 @@ def minutiae_match(ldes: torch.Tensor, lvalid: torch.Tensor,
         *(t.data_ptr() for t in (ldes, lvalid, rdes, rvalid, lpack, rpack,
                                  out)),
         None if ws is None else ws.data_ptr(), nblk,
-        NT, P, B, R, D, K, row_cap, int(lookup), dist_iters, _stream(dev))
+        NT, P, B, R, D, K, row_cap, int(lookup), dist_iters,
+        DTYPE_CODE[ldes.dtype], DTYPE_CODE[rdes.dtype], _stream(dev))
     _build.check(err, "minutiae_match")
     minutiae_match.launches += 1
     return out
 
 
 minutiae_match.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the experiment and probe scripts' kernels, and the launch canary
+# ---------------------------------------------------------------------------
+
+def screen_t_bf16_plain(xt, dect):
+    """raw[b, m] = max_j sum_d dect[b, j, d] xt[d, m], f32 sums in index
+    order."""
+    return seq_dots(xt.t()[None], dect)[0].max(dim=-1).values
+
+
+def screen_t_bf16(xt: torch.Tensor, dect: torch.Tensor,
+                  entries: int = 8) -> torch.Tensor:
+    """The transposed bf16 screen of the ADC-screen experiment: xt [Da, M]
+    and dect [B, Rt, Da] bf16 -> raw [B, M] f32; ``entries`` gallery
+    entries per thread block (the script's entries per step)."""
+    Da, M = xt.shape
+    B, Rt, _ = dect.shape
+    dev = xt.device
+    _check("xt", xt, (Da, M), torch.bfloat16, dev)
+    _check("dect", dect, (B, Rt, Da), torch.bfloat16, dev)
+    if not _is_cuda(dev):
+        return screen_t_bf16_plain(xt, dect)
+    raw = torch.empty((B, M), dtype=torch.float32, device=dev)
+    err = _build.load().afis_screen_t_bf16(
+        xt.data_ptr(), dect.data_ptr(), raw.data_ptr(), M, B, Rt, Da,
+        entries, _stream(dev))
+    _build.check(err, "screen_t_bf16")
+    screen_t_bf16.launches += 1
+    return raw
+
+
+screen_t_bf16.launches = 0
+
+
+def screen_t_int8_plain(xt, dect, corr):
+    """raw[b, m] = max_j (sum_d dect[b, j, d] xt[d, m] + corr[b, j]) in
+    int32; the products and sums are exact in f64, so any order gives the
+    same integers."""
+    dots = torch.matmul(dect.double(), xt.double())            # [B, Rt, M]
+    return (dots + corr.double()[:, :, None]).max(dim=1).values \
+        .to(torch.int32)
+
+
+def screen_t_int8(xt: torch.Tensor, dect: torch.Tensor, corr: torch.Tensor,
+                  entries: int = 8) -> torch.Tensor:
+    """The transposed int8 x int8 screen of the ADC-screen experiment:
+    xt [D, M] and dect [B, Rt, D] int8 (D a multiple of 4), corr [B, Rt]
+    int32 -> raw [B, M] int32."""
+    D, M = xt.shape
+    B, Rt, _ = dect.shape
+    dev = xt.device
+    _check("xt", xt, (D, M), torch.int8, dev)
+    _check("dect", dect, (B, Rt, D), torch.int8, dev)
+    _check("corr", corr, (B, Rt), torch.int32, dev)
+    if not _is_cuda(dev):
+        return screen_t_int8_plain(xt, dect, corr)
+    raw = torch.empty((B, M), dtype=torch.int32, device=dev)
+    err = _build.load().afis_screen_t_int8(
+        xt.data_ptr(), dect.data_ptr(), corr.data_ptr(), raw.data_ptr(), M, B,
+        Rt, D, entries, _stream(dev))
+    _build.check(err, "screen_t_int8")
+    screen_t_int8.launches += 1
+    return raw
+
+
+screen_t_int8.launches = 0
+
+
+def screen_t_operands(x: torch.Tensor, dec: torch.Tensor,
+                      rsq: torch.Tensor, rvalid: torch.Tensor,
+                      int8: bool = False):
+    """The transposed screens' operands, as the experiment's ``run`` builds
+    them (the JAX package's scripts/exp_screen_mfu.py:113-153).
+
+    bf16: (xt [D + 2, M], dect [B, Rt, D + 2]) with dec cast to bf16 beside
+    the aug columns -(rsq / 2) and 0 / -1e4, both rounded to bf16, against
+    x with two ones rows. int8: (xt [D, M], dect [B, Rt, D], corr [B, Rt],
+    sx) with sx = max|x| / 126 + 1e-9, xt = clip(round(x / sx)) and corr =
+    round(-(rsq / 2) / sx) + (0 or -2^28).
+    """
+    NL, Lt, D = x.shape
+    M = NL * Lt
+    rsqm = rsq * 0.5
+    if int8:
+        xf = x.float()
+        sx = true_div(xf.abs().max(), 126.0) + 1e-9
+        xq = torch.clamp(torch.round(true_div(xf, sx.expand_as(xf))), -127,
+                         127).to(torch.int8)
+        corr = torch.round(true_div(-rsqm, sx.expand_as(rsqm))) \
+            .to(torch.int32) + torch.where(
+                rvalid > 0, 0, -(1 << 28)).to(torch.int32)
+        return (xq.reshape(M, D).t().contiguous(),
+                dec.to(torch.int8).contiguous(), corr.contiguous(), sx)
+    bf = torch.bfloat16
+    aug = torch.stack([(-rsqm).to(bf), torch.where(
+        rvalid > 0, torch.zeros_like(rvalid),
+        torch.full_like(rvalid, SCREEN_SENT)).to(bf)], dim=2)
+    ones = torch.ones((NL, Lt, 2), dtype=bf, device=x.device)
+    return (torch.cat([x.to(bf), ones], dim=2).reshape(M, D + 2).t()
+            .contiguous(), torch.cat([dec.to(bf), aug], dim=2).contiguous())
+
+
+def screen_t(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
+             dec: torch.Tensor, rsq: torch.Tensor, rvalid: torch.Tensor,
+             int8: bool = False, entries: int = 8) -> torch.Tensor:
+    """The experiment's transposed screen end to end (its ``run``, the JAX
+    package's scripts/exp_screen_mfu.py:113-170) -> [NL, B] f32.
+
+    x [NL, Lt, D] bf16, lsq / lvalid [NL, Lt] f32, dec [B, Rt, D] int8 or
+    bf16, rsq / rvalid [B, Rt] f32; operands as ``screen_t_operands``.
+    best = 2 raw + (6 - lsq) in bf16, 2 raw sx + (6 - lsq) in int8; then
+    sum_i max(best, 0) * lvalid.
+    """
+    NL, Lt, _ = x.shape
+    B = dec.shape[0]
+    ops = screen_t_operands(x, dec, rsq, rvalid, int8)
+    if int8:
+        raw = screen_t_int8(*ops[:3], entries)
+        raw = raw.reshape(B, NL, Lt).transpose(0, 1)
+        best = 2.0 * raw.float() * ops[3] + (6.0 - lsq)[:, None, :]
+    else:
+        raw = screen_t_bf16(*ops, entries)
+        raw = raw.reshape(B, NL, Lt).transpose(0, 1)
+        best = 2.0 * raw + (6.0 - lsq)[:, None, :]
+    return (torch.clamp(best, min=0.0) * lvalid[:, None, :]).sum(dim=2)
+
+
+H1_VARIANTS = ("bcast", "matmul", "gram")
+
+
+def _probe_dist(x, y, variant: str):
+    """[N, K, K] pairwise distances of one side, as the probe's variant
+    forms them (the JAX package's scripts/microbench_h1_probe.py)."""
+    if variant == "gram":
+        s = x * x + y * y
+        q = s[:, :, None] * 1.0 + s[:, None, :] * 1.0
+        q = q + (-2.0 * x)[:, :, None] * x[:, None, :]
+        q = q + (-2.0 * y)[:, :, None] * y[:, None, :]
+        return torch.sqrt(torch.clamp(q, min=0.0))
+    if variant == "matmul":
+        dx = x[:, :, None] * 1.0 + x[:, None, :] * -1.0
+        dy = y[:, :, None] * 1.0 + y[:, None, :] * -1.0
+    else:
+        dx = x[:, :, None] - x[:, None, :]
+        dy = y[:, :, None] - y[:, None, :]
+    return torch.sqrt(dx * dx + dy * dy)
+
+
+def h1_probe_plain(lx, ly, rx, ry, vf, variant: str = "bcast"):
+    """sum_i sum_j clip((30 - dist) / 25, 0, 1) (dist <= 30) vf_j vf_i with
+    dist = |d1 - d2|, both sums in index order."""
+    d1, d2 = _probe_dist(lx, ly, variant), _probe_dist(rx, ry, variant)
+    dist = (d1 - d2).abs()
+    h1 = torch.clamp((30.0 - dist) / torch.full_like(dist, 25.0), 0.0, 1.0)
+    pairf = vf[:, None, :] * vf[:, :, None]
+    gate = (dist <= 30.0).float() * pairf
+    return seq_sum(seq_sum(h1 * gate, dim=2), dim=1)
+
+
+def h1_probe(lx: torch.Tensor, ly: torch.Tensor, rx: torch.Tensor,
+             ry: torch.Tensor, vf: torch.Tensor,
+             variant: str = "bcast") -> torch.Tensor:
+    """The H1-build probe over NP sets of K slots: lx, ly, rx, ry, vf
+    [NP, K] f32 -> [NP] f32, the distances formed as ``variant`` (bcast,
+    matmul: equal bit for bit; gram: not exact)."""
+    NP, K = lx.shape
+    dev = lx.device
+    for name, t in (("lx", lx), ("ly", ly), ("rx", rx), ("ry", ry),
+                    ("vf", vf)):
+        _check(name, t, (NP, K), torch.float32, dev)
+    if variant not in H1_VARIANTS:
+        raise ValueError(f"variant {variant!r}, expected one of "
+                         f"{H1_VARIANTS}")
+    if not _is_cuda(dev):
+        return h1_probe_plain(lx, ly, rx, ry, vf, variant)
+    out = torch.empty((NP,), dtype=torch.float32, device=dev)
+    err = _build.load().afis_h1_probe(
+        *(t.data_ptr() for t in (lx, ly, rx, ry, vf, out)), NP, K,
+        H1_VARIANTS.index(variant), _stream(dev))
+    _build.check(err, "h1_probe")
+    h1_probe.launches += 1
+    return out
+
+
+h1_probe.launches = 0
+
+
+def legality_canary_plain(x):
+    return x.clone()
+
+
+def max_smem_optin() -> int:
+    """The card's limit of dynamic shared memory per block, in bytes
+    (232,448 on the H100)."""
+    return int(_build.load().afis_max_smem_optin())
+
+
+def legality_canary(x: torch.Tensor, threads: int = 256,
+                    smem_bytes: int = 0) -> torch.Tensor:
+    """A copy of x (f32, any shape) launched with the plan (``threads`` per
+    block, ``smem_bytes`` of dynamic shared memory). A plan the card
+    refuses raises RuntimeError naming the CUDA error; it never returns
+    output."""
+    dev = x.device
+    _check("x", x, tuple(x.shape), torch.float32, dev)
+    if not _is_cuda(dev):
+        return legality_canary_plain(x)
+    y = torch.empty_like(x)
+    err = _build.load().afis_legality_canary(
+        x.data_ptr(), y.data_ptr(), x.numel(), int(threads), int(smem_bytes),
+        _stream(dev))
+    _build.check(err, "legality_canary")
+    legality_canary.launches += 1
+    return y
+
+
+legality_canary.launches = 0

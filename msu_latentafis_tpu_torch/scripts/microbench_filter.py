@@ -10,8 +10,8 @@ pre-gathered), timed at the match step's set counts (24 x 512 sets of
 K 120, float distance, 5 power iterations; 8 x 512 sets of K 200, lookup
 distance, 3 iterations); the difference to the whole ``minutiae_match`` and
 ``texture_match`` kernels at the same sets is their similarity and
-selection preamble. The JAX script feeds the minutiae match bf16
-descriptors; the port has f32 only. One JSON line per variant,
+selection preamble. The minutiae match gets bf16 descriptors, as the JAX
+script feeds it. One JSON line per variant,
 {"variant", "ms"}, timed with CUDA events over REPS launches after one
 warm-up.
 """
@@ -59,7 +59,8 @@ def make_inputs(rng, device):
     rol /= np.linalg.norm(rol, axis=-1, keepdims=True)
     lpackT = rng.uniform(0, 480, (NT, 4, P))
     rpackT = rng.uniform(0, 480, (B, 4, R))
-    minu = dict(ldes=put(lat), lvalid=put(np.ones((NT, P))), rdes=put(rol),
+    minu = dict(ldes=put(lat, torch.bfloat16), lvalid=put(np.ones((NT, P))),
+                rdes=put(rol, torch.bfloat16),
                 rvalid=put(np.ones((B, R))),
                 lpack=put(np.swapaxes(lpackT, 1, 2)),
                 rpack=put(np.swapaxes(rpackT, 1, 2)), top_n=K, row_cap=8,

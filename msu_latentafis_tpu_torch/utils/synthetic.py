@@ -169,12 +169,15 @@ def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
                              seed: int = 0, chunk: int = 2048,
                              both_layouts: bool = False):
     """A DeviceGallery of G random rolled templates generated on the
-    engine's device from ``torch.Generator(seed)``, predecoded (f32
-    ``tex_dec``). With ``both_layouts`` it returns the pair (predecoded,
-    codes-resident): the second holds the uint8 ``tex_codes`` the first's
-    ``tex_dec`` decodes from and shares every other tensor with it. G is
-    padded to a block multiple; padding entries have zero counts and score
-    -1."""
+    engine's device from ``torch.Generator(seed)``, predecoded
+    (``tex_dec`` in the engine's mode: f32, bf16 or int8). With
+    ``both_layouts`` it returns the pair (predecoded, codes-resident): the
+    second holds the uint8 ``tex_codes`` the first's ``tex_dec`` decodes
+    from and shares every other tensor with it. The descriptors are drawn
+    in f32 and stored as the engine stores them (``minutiae_storage``:
+    the compute dtype, or int8 with minu_int8); the squared norms are those
+    of the f32 decode. G is padded to a block multiple; padding entries
+    have zero counts and score -1."""
     from ..matcher.engine import DeviceGallery
     from ..matcher.texture_match import decode_pq
 
@@ -195,7 +198,8 @@ def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
         minu_des=torch.empty((Gp, Rm, D), **f32),
         minu_pack=torch.empty((Gp, Rm, 4), **f32),
         minu_n=torch.zeros((Gp,), dtype=torch.int32, device=dev),
-        tex_dec=torch.empty((Gp, Rt, D), **f32),
+        tex_dec=torch.empty((Gp, Rt, D), dtype=engine.tex_dec_dtype,
+                            device=dev),
         tex_codes=torch.zeros((Gp, Rt, S), dtype=torch.uint8, device=dev)
         if both_layouts else None,
         tex_sqnorm=torch.empty((Gp, Rt), **f32),
@@ -216,7 +220,7 @@ def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
         if both_layouts:
             t["tex_codes"][a:a + n] = codes
         dec = decode_pq(codes, cb)
-        t["tex_dec"][a:a + n] = dec
+        t["tex_dec"][a:a + n] = engine.predecode(codes)
         t["tex_sqnorm"][a:a + n] = (dec * dec).sum(dim=2)
         tori = uniform((n, Rt), -np.pi, np.pi)
         t["tex_pack"][a:a + n] = torch.stack(
@@ -227,10 +231,11 @@ def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
         if v is not None:
             v[G:] = 0
     codes, dec = t.pop("tex_codes"), t.pop("tex_dec")
+    t["minu_des"], minu_scale = engine.minutiae_storage(t["minu_des"])
 
     def gallery(**tex):
         return DeviceGallery(names=[str(i) for i in range(G)], n_real=G,
-                             **t, **tex)
+                             minu_scale=minu_scale, **t, **tex)
     if not both_layouts:
         return gallery(tex_dec=dec)
     return gallery(tex_dec=dec), gallery(tex_codes=codes)
@@ -240,13 +245,21 @@ def plant_gallery_entries(gallery, engine, packed_mates,
                           positions: Sequence[int]) -> None:
     """Overwrite gallery rows at ``positions`` in place with real packed
     templates (planted mates); ``packed_mates`` holds len(positions)
-    entries. Every tensor the gallery holds is written, in either layout;
-    per-entry axes are zero-padded up to the gallery's capacity."""
-    from ..matcher.texture_match import decode_pq
+    entries. Every tensor the gallery holds is written, in either layout
+    and in the engine's mode (an int8 gallery's minutiae descriptors with
+    the gallery's own scale); per-entry axes are zero-padded up to the
+    gallery's capacity."""
+    from ..matcher.kernels.ops import true_div
     loaded = engine.load_gallery(packed_mates)
     codes = torch.as_tensor(packed_mates.tex_codes, device=engine.device)
     small = {f: getattr(loaded, f) for f in gallery.TENSORS}
-    small.update(tex_codes=codes, tex_dec=decode_pq(codes, engine.codebook_t))
+    small.update(tex_codes=codes, tex_dec=engine.predecode(codes))
+    mdes = torch.as_tensor(np.asarray(packed_mates.minu_des, np.float32),
+                           device=engine.device)
+    if gallery.minu_scale is not None:
+        mdes = torch.clamp(torch.round(true_div(
+            mdes, gallery.minu_scale.expand_as(mdes))), -127, 127)
+    small["minu_des"] = mdes.to(gallery.minu_des.dtype)
     pos = torch.as_tensor(list(positions), dtype=torch.long,
                           device=gallery.minu_des.device)
     n = len(positions)

@@ -177,6 +177,42 @@ def test_gallery_from_jax_round_trip(packed_pair):
                                   te.match_scores_batch(pls, own).numpy())
 
 
+@pytest.mark.parametrize("mode", [dict(compute_dtype="bf16"),
+                                  dict(compute_dtype="bf16", tex_int8=True,
+                                       minu_int8=True),
+                                  dict(tex_int8=True, minu_int8=True)])
+def test_gallery_from_jax_round_trip_modes(packed_pair, mode):
+    """A bf16 or int8 JAX gallery (bf16 / int8 minu_des with minu_scale,
+    bf16 / int8 tex_dec), carried over, keeps its types and bits and scores
+    exactly like the port's own load in the same mode."""
+    import jax.numpy as jnp
+    cb, pg, pls = packed_pair
+    bf16 = mode.get("compute_dtype") == "bf16"
+    flags = {k: v for k, v in mode.items() if k != "compute_dtype"}
+    je = JaxEngine(cb, block_size=4, compute_dtype=jnp.bfloat16 if bf16
+                   else jnp.float32, **flags)
+    te = MatchEngine(cb, block_size=4, row_cap=24, device="cpu",
+                     compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+                     **flags)
+    jgal = je.load_gallery(pg)
+    arrays = {k: np.asarray(v) for k, v in je._gallery_dict(jgal).items()}
+    conv = gallery_from_jax(arrays, names=jgal.names, n_real=jgal.n_real,
+                            device="cpu")
+    own = te.load_gallery(pg)
+    for f in ("minu_des", "tex_dec", "minu_pack", "tex_sqnorm", "tex_pack"):
+        a, b = getattr(conv, f), getattr(own, f)
+        assert a.dtype == b.dtype, f
+        assert torch.equal(a, b), f
+    assert (conv.minu_scale is None) == (own.minu_scale is None)
+    if own.minu_scale is not None:
+        assert torch.equal(conv.minu_scale, own.minu_scale)
+    assert torch.equal(te.match_scores_batch(pls, conv),
+                       te.match_scores_batch(pls, own))
+    bad = dict(arrays, minu_des=arrays["minu_des"].astype(np.float16))
+    with pytest.raises(ValueError):
+        gallery_from_jax(bad, device="cpu")
+
+
 def test_cli_match_writes_rank_csv(sweep, tmp_path, capsys):
     """``match`` on a .dat gallery: the latent's mate is rank 1 and the CSV
     has the reference's One2List format."""

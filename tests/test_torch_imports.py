@@ -27,6 +27,16 @@ packed, mates = chip_smoke.make_latents(rng, 1, cb)
 engine = MatchEngine(cb, block_size=1, device="cpu")
 score = float(engine.match_scores(packed[0], engine.load_gallery(mates))[0])
 assert score > 50.0, score
+for name in ("config", "scripts.exp_screen_mfu",
+             "scripts.microbench_h1_probe"):
+    assert "msu_latentafis_tpu_torch." + name in sys.modules, name
+import torch
+from msu_latentafis_tpu_torch.config import load_config
+assert load_config(None).ComputeDtype == "float32"
+bf = MatchEngine(cb, block_size=1, compute_dtype=torch.bfloat16,
+                 tex_int8=True, minu_int8=True, device="cpu")
+q = float(bf.match_scores(packed[0], bf.load_gallery(mates))[0])
+assert abs(q - score) < 0.05 * score, (q, score)
 assert "triton" not in sys.modules
 assert not any(k.startswith("jax") for k, v in sys.modules.items() if v)
 print("OK", score)
@@ -69,5 +79,6 @@ def test_kernels_build_only_with_nvcc():
     assert {s.name for s in _build.sources()} == {
         "adc_rowmax.cu", "adc_screen.cu", "minu_screen.cu",
         "minu_screen_norm.cu", "texture_match.cu", "minutiae_match.cu",
-        "graph_filter.cu", "graph_filter_infuse.cu"}
+        "graph_filter.cu", "graph_filter_infuse.cu", "screen_t.cu",
+        "h1_probe.cu", "legality_canary.cu"}
     assert _build.library_path().parent == _build.BUILD_DIR

@@ -291,19 +291,32 @@ def test_codes_resident_equals_predecoded(serving):
 
 
 def test_codes_resident_rule():
-    """None predecodes a gallery in host memory while its f32 texture (4
-    bytes per element) stays under the 9e9-byte budget: at Rt 448 / D 96
-    the last predecoded padded size is 52,288 entries."""
+    """None predecodes a gallery in host memory by the JAX engine's rule
+    (``_should_predecode``): its predecoded texture counted at 2 bytes per
+    element, 1 with tex_int8, under the 9e9-byte budget. At Rt 448 / D 96,
+    block 64, the last predecoded padded size is 104,576 entries (209,216
+    with tex_int8), whatever the compute dtype; the modes construct."""
     cb = random_codebook(np.random.default_rng(0))
-    e = MatchEngine(cb, device="cpu")
-    assert e.should_predecode(52288, 448) and not e.should_predecode(52352,
-                                                                     448)
+    je = JaxEngine(cb)
+    for kw, last in ((dict(), 104576), (dict(tex_int8=True), 209216)):
+        for dtype in (torch.float32, torch.bfloat16):
+            e = MatchEngine(cb, device="cpu", compute_dtype=dtype, **kw)
+            assert e.should_predecode(last, 448), (kw, dtype)
+            assert not e.should_predecode(last + 64, 448), (kw, dtype)
+        j = JaxEngine(cb, **kw)
+        assert j._should_predecode(last, 448)
+        assert not j._should_predecode(last + 64, 448)
+    assert je._should_predecode(104576, 448)
     assert not MatchEngine(cb, codes_resident=True, device="cpu") \
         .should_predecode(64, 448)
     for kw in (dict(tex_int8=True), dict(minu_int8=True),
                dict(compute_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError):
-            MatchEngine(cb, device="cpu", **kw)
+        e = MatchEngine(cb, device="cpu", **kw)
+        assert (e.compute_dtype, e.tex_int8, e.minu_int8) == (
+            kw.get("compute_dtype", torch.float32),
+            kw.get("tex_int8", False), kw.get("minu_int8", False))
+    with pytest.raises(ValueError):
+        MatchEngine(cb, device="cpu", compute_dtype=torch.float16)
 
 
 def test_codes_resident_rule_on_cuda(monkeypatch):
@@ -319,6 +332,18 @@ def test_codes_resident_rule_on_cuda(monkeypatch):
         monkeypatch.setattr(torch.cuda, "mem_get_info",
                             lambda device, free=free: (free, 80 * 10 ** 9))
         assert e.should_predecode(G, 448) == want, free
+    # counted on the bytes the predecoded tensor takes: 2 per element in
+    # bf16, 1 with tex_int8
+    for kw, per in ((dict(compute_dtype=torch.bfloat16), 2),
+                    (dict(tex_int8=True), 1)):
+        e = MatchEngine(cb, device="cpu", **kw)
+        e.device = torch.device("cuda")
+        nb = G * 448 * 96 * per
+        for free, want in ((2 * nb, False), (2 * nb + 2, True)):
+            monkeypatch.setattr(torch.cuda, "mem_get_info",
+                                lambda device, free=free: (free,
+                                                           80 * 10 ** 9))
+            assert e.should_predecode(G, 448) == want, (kw, free)
 
 
 def test_gallery_holds_one_texture_layout():
@@ -425,3 +450,51 @@ def test_cli_prescreen_needs_rerank(tmp_path):
         cli.main(["match", "-l", "q.dat", "-g", str(tmp_path), "-c", "cb.dat",
                   "-s", str(tmp_path), "--prescreen", "8"])
     assert e.value.code != 0
+
+
+def test_cli_config_reaches_the_bf16_engine(tmp_path, monkeypatch):
+    """``--config`` with ComputeDtype "bfloat16": -c / -s fall back to
+    CodebookPath / ScorePath, MatchBlockSize and the bf16 engine are used,
+    and the mate is rank 1."""
+    import json
+    rng = np.random.default_rng(5)
+    cb = random_codebook(rng)
+    cbf = tmp_path / "codebook.dat"
+    write_codebook(cbf, cb)
+    lat = make_latent_template(rng, n_minu=16, n_tex=40)
+    gdir = tmp_path / "gallery"
+    gdir.mkdir()
+    for j in range(6):
+        write_final_rolled_pq_template(
+            os.path.join(gdir, f"r{j}.dat"), _to_pixels(make_rolled_template(
+                rng, n_minu=20, n_tex=40, mated_latent=lat if j == 4 else None,
+                codebook=cb if j == 4 else None)))
+    latf = tmp_path / "q.dat"
+    write_final_latent_template(latf, _to_pixels(lat))
+    sdir = tmp_path / "scores"
+    cfg = tmp_path / "afis.config"
+    cfg.write_text(json.dumps({"CodebookPath": str(cbf),
+                               "ScorePath": str(sdir), "MatchBlockSize": 4,
+                               "ComputeDtype": "bfloat16",
+                               "EnhancementModel": "unused"}))
+    seen = []
+    real = cli.MatchEngine
+
+    def spy(*a, **kw):
+        e = real(*a, **kw)
+        seen.append(e)
+        return e
+    monkeypatch.setattr(cli, "MatchEngine", spy)
+    rc = cli.main(["match", "-l", str(latf), "-g", str(gdir), "--config",
+                   str(cfg), "--device", "cpu"])
+    assert rc == 0
+    assert seen[0].compute_dtype == torch.bfloat16
+    assert seen[0].block_size == 4
+    lines = (sdir / "q.csv").read_text().splitlines()
+    assert lines[0] == "filename,score" and lines[1].startswith("1r4,")
+    monkeypatch.chdir(tmp_path)          # found from the working directory
+    sdir.joinpath("q.csv").unlink()
+    assert cli.main(["match", "-l", str(latf), "-g", str(gdir), "--device",
+                     "cpu"]) == 0
+    assert seen[1].compute_dtype == torch.bfloat16
+    assert (sdir / "q.csv").exists()
