@@ -10,8 +10,11 @@ Phases (any failure exits nonzero; there is no CPU fallback):
   1. each kernel against its plain PyTorch version on the card, on one
      64-entry gallery block with 2 latents at full widths (Lm 64, Rm 96,
      Lt 448, Rt 448, D 96, T 3): maximum difference against the stated
-     tolerance, kernel / plain / library times, bound; the codes kernels
-     must equal their predecoded twins bit for bit. The normalized screen
+     tolerance (rtol 1e-5 / atol 1e-4, ops.KERNEL_TOL; the codes ADC screen
+     with a bf16 codebook, which sums on the tensor cores and rounds its row
+     maxima to bf16, within ops.screen_slack), kernel / plain / library
+     times, bound; the f32 codes kernels must equal their predecoded twins
+     bit for bit. The normalized screen
      on the same block; the packed graph filter at stages 0-6 and with a
      stage2_cap below the survivor count, the xy / ori filter, and the
      infuse filter with val and with simi, on sets of that block's width;
@@ -64,13 +67,16 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      100,000-entry gallery and latents at the JAX bench's code defaults
      (m 256, prescreen 256 / 64 / 1): mates at rank 1, kept exact scores
      equal to the mode's dense scores, steady latents/s, a profiler
-     breakdown; the typed screens held per chunk; normalize=True serving in
-     the same mode and its screen held;
+     breakdown; the typed screens held per chunk, and the entries whose
+     membership in the chunk's screen top-k1 and top-m sets differs between
+     the kernels and the plain versions counted and printed; normalize=True
+     serving in the same mode and its screen held;
   9. the reference-cap shape (Lm = Rm = 128, Lt = Rt = 1000) codes-resident
      with minu_int8 in bf16, the JAX bench's headline mode, serving 8
      latents at m 256 / prescreen 256 / 64 / 1 over 16,384 entries (not
      100,000: the cap shape has about 5x the 448 shape's screen work):
-     mates at rank 1, latents/s, profile; the typed codes kernels held;
+     mates at rank 1, latents/s, profile; the typed codes kernels held and
+     the screen's top-k1 / top-m set differences counted as in phase 8;
   10. the ported scripts' kernels: exp_screen_mfu's five variants at its
      shapes (NL 8, Lt 448, Rt 448, D 96, B 4096), the H1 probe's three
      variants (matmul must equal bcast), the launch-legality canary (a
@@ -82,7 +88,9 @@ runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 over one call's chunks (the screens) or over its blocks with and without a
 mate (the dense kernels), so that ms x launches is the call's time in that
 kernel; the filter kernels at the first microbench shape. The last two lines
-of standard output are that record and {"ok": true, "device": {...}}. The
+of standard output are that record and {"ok": true, "device": {...}}; the
+two kernels redesigned for the tensor cores (the codes ADC screen, the
+minutiae screen) also print their PR 7 times beside this run's. The
 script imports no JAX.
 """
 from __future__ import annotations
@@ -125,7 +133,7 @@ KERNEL_META = {
     "minutiae_match": ("minutiae_match.cu", f"{PALLAS}:878"),
     "minu_screen": ("minu_screen.cu", f"{PALLAS}:1312"),
     "adc_screen": ("adc_screen.cu", f"{PALLAS}:1106"),
-    "adc_screen_codes": ("adc_screen.cu", f"{PALLAS}:1213"),
+    "adc_screen_codes": ("adc_screen_codes.cu", f"{PALLAS}:1213"),
     "adc_rowmax_codes": ("adc_rowmax.cu", f"{PALLAS}:1434"),
     "minu_screen_norm": ("minu_screen_norm.cu", f"{PALLAS}:1370"),
     "graph_filter_packed": ("graph_filter.cu", f"{PALLAS}:456"),
@@ -140,6 +148,14 @@ KERNEL_META = {
 # graph_filter launches graph_filter_packed's kernel after building the
 # cos / sin packs, as fused_graph_filter wraps the same Pallas body
 SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
+# ms per launch of the kernels redesigned for Hopper, before the redesign,
+# on their main paths' shapes (PERF.md section 6: NVIDIA H100 80GB HBM3,
+# 700.00 W, PR 7's chip_smoke.py run); printed beside this run's
+BEFORE_PR8_MS = {"adc_screen_codes": 107.0624,
+                 "adc_screen_codes[bf16]": 156.3905,
+                 "minu_screen": 9.0466,
+                 "minu_screen[bf16,bf16]": 9.0782,
+                 "minu_screen[bf16,int8]": 39.1235}
 SERVE_NORM = dict(SERVE, normalize=True)
 LARGE_PRINTS = ((128, 1000), (256, 96))   # (P, R) of the large-print block
 DENSE_KERNELS = ("adc_rowmax", "texture_match", "minutiae_match")
@@ -326,28 +342,48 @@ def with_stats(plain, sink: list):
     return run
 
 
-def hold(fn, plain, library, reps: int, twin=None) -> dict:
+def within(got, want, atol) -> bool:
+    """|got - want| <= atol + TOL's rtol |want| everywhere; atol a number or
+    a tensor of got's shape."""
+    import torch
+    d = (got.double() - want.double()).abs()
+    return bool((d <= torch.as_tensor(atol, dtype=torch.float64,
+                                      device=d.device)
+                 + TOL["rtol"] * want.double().abs()).all())
+
+
+def hold(fn, plain, library, reps: int, twin=None, atol=None,
+         keep: bool = False) -> dict:
     """One kernel launch held against its plain version on the same inputs
-    (first output within TOL, the others equal) and, for a codes kernel,
-    against its predecoded twin bit for bit; kernel, plain and library
-    times. The caller adds the bound."""
+    (first output within TOL, or within rtol and the elementwise ``atol``
+    of ops.screen_slack for a tensor-core screen that rounds its row maxima
+    to bf16; the other outputs equal) and, for a codes kernel, against its
+    predecoded twin (bit for bit, or within the same ``atol``); kernel,
+    plain and library times; with ``keep`` the kernel's and the plain
+    version's first outputs ("got", "want"). The caller adds the bound."""
     import torch
     got = fn()
     want = plain()
     torch.cuda.synchronize()
     outs = got if isinstance(got, tuple) else (got,)
     wants = want if isinstance(want, tuple) else (want,)
-    ok = torch.allclose(outs[0].double(), wants[0].double(), **TOL) and all(
+    tol = TOL["atol"] if atol is None else atol
+    ok = within(outs[0], wants[0], tol) and all(
         torch.equal(a, b) for a, b in zip(outs[1:], wants[1:]))
     if twin is not None:
         tw = twin()
         tw = tw if isinstance(tw, tuple) else (tw,)
-        ok = ok and all(torch.equal(a, b) for a, b in zip(outs, tw))
-    return dict(max_abs_err=float((outs[0].double()
-                                   - wants[0].double()).abs().max()),
-                ok=bool(ok), out_bytes=nbytes(*outs), ms=cuda_ms(fn, reps),
-                plain_ms=cuda_ms(plain, 1, warm=False),
-                library_ms=None if library is None else cuda_ms(library, reps))
+        ok = ok and (all(torch.equal(a, b) for a, b in zip(outs, tw))
+                     if atol is None else within(outs[0], tw[0], tol))
+    r = dict(max_abs_err=float((outs[0].double()
+                                - wants[0].double()).abs().max()),
+             ok=bool(ok), out_bytes=nbytes(*outs), ms=cuda_ms(fn, reps),
+             plain_ms=cuda_ms(plain, 1, warm=False),
+             library_ms=None if library is None else cuda_ms(library, reps),
+             atol=TOL["atol"] if atol is None else float(atol.max()))
+    if keep:
+        r.update(got=outs[0], want=wants[0])
+    return r
 
 
 def dense_records(minu, adc, tex, reps: int) -> dict:
@@ -392,11 +428,27 @@ def dense_records(minu, adc, tex, reps: int) -> dict:
     return rec
 
 
+def codes_slack(args: dict, step: int):
+    """ops.screen_slack [NL, B] of adc_screen_codes on ``args``, the row
+    maxima from the plain version ``step`` entries at a time."""
+    import torch
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    from msu_latentafis_tpu_torch.matcher.texture_match import decode_pq
+    B = args["rsq"].shape[0]
+    raw = torch.cat([ops.screen_rowmax_plain(
+        args["x"], decode_pq(args["codes"][a:a + step], args["codebook"]),
+        args["rsq"][a:a + step], args["rvalid"][a:a + step])
+        for a in range(0, B, step)], dim=1)
+    return ops.screen_slack(args["x"], args["lvalid"], raw)
+
+
 def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
     """The screen kernels on one launch's inputs (``engine.screen_args``;
     either layout may be None); plain versions and library calls ``step``
     entries at a time; adc_screen_codes equal to adc_screen bit for bit
-    when both are given. Keyed by ``tag``."""
+    when both are given in f32, within ops.screen_slack (as against its
+    plain version) with a bf16 codebook. Keyed by ``tag``."""
+    import torch
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     rec = {}
     if mscr is not None:
@@ -404,7 +456,7 @@ def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
         B, R, _ = mscr["rdes"].shape
         r = hold(lambda: ops.minu_screen(**mscr),
                  by_entries(ops.minu_screen_plain, mscr, step),
-                 by_entries(minu_library, mscr, step), reps)
+                 by_entries(minu_library, mscr, step), reps, keep=True)
         r["bound"] = bound(2.0 * NT * B * P * R * D,
                            tensor_bytes(mscr) + r["out_bytes"],
                            peak_of(mscr["ldes"]))
@@ -417,16 +469,52 @@ def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
             continue
         NL, Lt, D = args["x"].shape
         B, Rt = args["rsq"].shape
+        slack = codes_slack(args, step) if name == "adc_screen_codes" \
+            and args["x"].dtype == torch.bfloat16 else None
         r = hold(
             lambda: getattr(ops, name)(**args),
             by_entries(getattr(ops, name + "_plain"), args, step),
-            by_entries(screen_library, args, step), reps, twin)
+            by_entries(screen_library, args, step), reps, twin, slack,
+            keep=True)
         r["bound"] = bound(2.0 * NL * B * Lt * Rt * D,
                            tensor_bytes(args) + r["out_bytes"],
                            peak_of(args["x"]))
         rec[tag(name, args["x"], *([args["dec"]] if "dec" in args
                                    else []))] = r
     return rec
+
+
+def topk_set_diffs(label: str, engine, gal, L, rows: slice, rec: dict):
+    """Logs the entries of one screen chunk whose membership in the top-k1
+    (prescreen) and top-m sets of serving at SERVE_BENCH differs between
+    the kernels' outputs and the plain versions', summed over the latents:
+    the screen is the minutiae screen summed over templates plus 0.3 times
+    the texture screen, empty entries -1, as the engine's _screen_all
+    combines them, cut by a stable descending sort, as the engine takes
+    its top-k. Takes the outputs that ``screen_records`` kept."""
+    import torch
+    from msu_latentafis_tpu_torch.matcher.engine import _skip_empty
+    from msu_latentafis_tpu_torch.templates.data_model import \
+        MatcherConstants as MC
+    minu = next(k for k in rec if k.startswith("minu_screen"))
+    tex = next(k for k in rec if k.startswith("adc_screen"))
+    screens = [_skip_empty(
+        rec[minu].pop(key).reshape(L["NL"], L["T"], -1).sum(dim=1)
+        + MC.TEXTURE_SCORE_WEIGHT * rec[tex].pop(key), gal, rows)
+        for key in ("got", "want")]
+    B = engine.block_size
+    k1 = max(B, (SERVE_BENCH["prescreen_k"] // B) * B)
+    m_pad = min(-(-min(SERVE_BENCH["m"], gal.size) // B) * B, gal.size)
+    diffs = []
+    for k in (k1, m_pad):
+        k = min(k, screens[0].shape[1])
+        top = [torch.sort(s, dim=1, descending=True, stable=True)
+               .indices[:, :k].cpu().tolist() for s in screens]
+        diffs.append(sum(k - len(set(a) & set(b)) for a, b in zip(*top)))
+    log(f"[{label}] screen chunk at {rows.start} ({screens[0].shape[1]} "
+        f"entries, {L['NL']} latents), kernels vs plain versions: "
+        f"{diffs[0]} entries differ in the top-{k1} (prescreen) sets, "
+        f"{diffs[1]} in the top-{m_pad} sets")
 
 
 def norm_record(mscr, step: int, reps: int) -> dict:
@@ -626,6 +714,7 @@ def per_launch(parts) -> dict:
             return None
         return sum(r[key] * w for r, w in parts) / n
     return dict(max_abs_err=max(r["max_abs_err"] for r, _ in parts),
+                atol=max(r.get("atol", TOL["atol"]) for r, _ in parts),
                 ok=all(r["ok"] for r, _ in parts), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
                 bound=(sum(r["bound"][0] * w for r, w in parts) / n,
@@ -642,8 +731,10 @@ def chunk_shapes(engine, G: int) -> list:
 
 def check_records(label: str, rec: dict) -> None:
     for name, r in rec.items():
+        atol = r.get("atol", TOL["atol"])
+        kind = "" if atol == TOL["atol"] else " (ops.screen_slack, max)"
         log(f"[{label}] {name}: max_abs_err {r['max_abs_err']:.3e} "
-            f"(tol rtol {TOL['rtol']} atol {TOL['atol']}) ok={r['ok']} "
+            f"(tol rtol {TOL['rtol']} atol {atol:.3e}{kind}) ok={r['ok']} "
             f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.2f} "
             f"library_ms {r['library_ms']} bound_ms {r['bound'][0]:.4f} "
             f"({r['bound'][1]})")
@@ -1348,8 +1439,10 @@ def phase_modes_serving(cb, card, lats, mates, positions):
     shapes = chunk_shapes(e, pre.size)
     parts = {}
     for a, n in shapes:
-        mscr, sadc = e.screen_args(L, pre, slice(a, a + e.screen_chunk))
+        rows = slice(a, a + e.screen_chunk)
+        mscr, sadc = e.screen_args(L, pre, rows)
         rec = screen_records(mscr, sadc, None, step=2048, reps=3)
+        topk_set_diffs("modes serving", e, pre, L, rows, rec)
         rec[tag("minu_screen_norm", mscr["ldes"], mscr["rdes"])] = \
             norm_record(mscr, 2048, 3)
         check_records(f"kernels, modes serving screens ({len(lats)} latents "
@@ -1415,8 +1508,10 @@ def phase_cap(cb, rng, card):
     lat = e.latent_batch(lats)
     L = e.screen_side(lat, gal, SERVE_BENCH["prescreen_lt"],
                       SERVE_BENCH["prescreen_t"])
-    mscr, cadc = e.screen_args(L, gal, slice(0, e.screen_chunk))
+    rows = slice(0, e.screen_chunk)
+    mscr, cadc = e.screen_args(L, gal, rows)
     rec = screen_records(mscr, None, cadc, step=1024, reps=3)
+    topk_set_diffs("cap", e, gal, L, rows, rec)
     sub = torch.as_tensor(out[0][0, :e.block_size], device=e.device)
     L1 = e.latent_side({k: v[:1] for k, v in lat.items()}, gal)
     minu, cadc1, _ = e.block_args(L1, gal.take(sub), 0)
@@ -1698,6 +1793,14 @@ def main() -> int:
             bound_by=r["bound"][1], library_ms=r["library_ms"]))
         if name in SHARED_SOURCE:
             kernels[-1]["shares_source_with"] = SHARED_SOURCE[name]
+    for k in kernels:
+        if k["name"] in BEFORE_PR8_MS:
+            log(f"[redesigned] {k['name']}: {k['ms']:.4f} ms per launch "
+                f"(PR 7: {BEFORE_PR8_MS[k['name']]} ms), bound "
+                f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "
+                f"{k['library_ms']} ms, plain {k['plain_ms']:.2f} ms, "
+                f"max_abs_err {k['max_abs_err']:.3e}, {k['launches']} "
+                f"launches, on {card}")
     missing = set(KERNEL_META) - {k["name"].split("[")[0] for k in kernels}
     if missing or min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"kernels line incomplete: missing {missing}, "

@@ -1,8 +1,8 @@
 // ADC texture screening score, one thread block per (latent, entry).
 //
 // Replaces the JAX package's pallas_kernels.py fused_adc_screen (:1106) /
-// _adc_augmax_kernel (:1080) and, over uint8 PQ codes,
-// fused_adc_screen_codes (:1213) / _adc_screen_codes_kernel (:1174):
+// _adc_augmax_kernel (:1080); the codes variant fused_adc_screen_codes is
+// adc_screen_codes.cu:
 //   v[i, j]   = (x_i . dec_j + a1_j) + a2_j
 //   raw[i]    = max_j v[i, j], rounded to x's type
 //   out[n, b] = sum_i max(2 raw[i] + ((6 - |x_i|^2) - tau), 0) * lv_i
@@ -21,14 +21,13 @@
 //
 // Bound: operations, 2 Lt Rt D flops per pair (5.5 MFLOP at the prescreen's
 // Lt = 64, 38.5 MFLOP at Lt = 448), against the entry's 172 KB of decoded
-// f32 descriptors (86 KB in bf16, 43 KB in int8) or 7 KB of codes. Design:
+// f32 descriptors (86 KB in bf16, 43 KB in int8). Design:
 // the block walks its latent rows in 64-row tiles and, for each, the rolled
 // columns in 64-column tiles (adc_tile.cuh, values widened to f32 on load);
 // a row's term goes to shared memory, and one thread sums the Lt terms in
 // index order, as the plain version does. Consecutive blocks share the
 // entry, so its descriptors are read from L2 for all but the first latent.
-// The codes variant adds the codebook (98.3 KB, 49.2 KB in bf16) to the two
-// 24.8 KB tiles; the launcher opts in to the shared memory.
+// The two 24.8 KB tiles exceed the 48 KB default; the launcher opts in.
 #include "adc_tile.cuh"
 
 namespace {
@@ -126,25 +125,5 @@ extern "C" int afis_adc_screen(const void* x, const float* lsq,
     return launch(static_cast<const XT*>(x), lsq, lvalid,
                   DecCols<DT>{static_cast<const DT*>(dec)}, a1, a2, out, NL,
                   Lt, B, Rt, D, tau, stream);
-  });
-}
-
-// The codebook has x's type.
-extern "C" int afis_adc_screen_codes(const void* x, const float* lsq,
-                                     const float* lvalid,
-                                     const uint8_t* codes,
-                                     const void* codebook, const float* a1,
-                                     const float* a2, float* out, int NL,
-                                     int Lt, int B, int Rt, int S, int C,
-                                     int sub_dim, float tau, int xtype,
-                                     void* stream) {
-  if (S <= 0 || C <= 0 || C > 256 || sub_dim <= 0)
-    return (int)cudaErrorInvalidValue;
-  return afis_t::dispatch_float(xtype, [&](auto xt) {
-    using XT = typename decltype(xt)::type;
-    return launch(static_cast<const XT*>(x), lsq, lvalid,
-                  CodeCols<XT>{codes, static_cast<const XT*>(codebook), S, C,
-                               sub_dim, nullptr},
-                  a1, a2, out, NL, Lt, B, Rt, S * sub_dim, tau, stream);
   });
 }

@@ -1,4 +1,6 @@
-// Shared pieces of the four ADC kernels (adc_rowmax.cu, adc_screen.cu).
+// Shared pieces of the ADC row max (adc_rowmax.cu, predecoded and codes)
+// and the predecoded ADC screen (adc_screen.cu); the codes screen is
+// adc_screen_codes.cu.
 //
 // A block holds kTile latent rows and kTile rolled columns in shared memory,
 // each row padded to D + 1 floats, and every one of its 256 threads keeps a

@@ -8,7 +8,12 @@ from one to the other. ``<wrapper>.launches`` counts kernel launches.
 
 The plain versions are the kernels' specification: the same arithmetic in
 the same order, so a kernel and its plain version agree bit for bit on the
-card (``chip_smoke.py`` holds them to rtol 1e-5 / atol 1e-4).
+card (``chip_smoke.py`` holds them to ``KERNEL_TOL``, rtol 1e-5 /
+atol 1e-4). Two kernels run their bf16 operands on the tensor cores
+(``mma.sync``), which sum each dot in another order: the minutiae screen
+with a bf16 latent side, held to ``KERNEL_TOL``, and the codes ADC screen
+with a bf16 codebook, whose row maxima round to bf16 and may land one bf16
+ulp apart, held to ``screen_slack``.
 
 Modes: the descriptor operands come in the types the JAX engine gives its
 kernels: the latent side f32 or bf16 (the compute dtype, any int8 scale
@@ -40,7 +45,9 @@ The ``_codes`` variants take uint8 PQ codes [B, Rt, S] and the codebook
 [S, C, sub_dim] in place of predecoded descriptors; their plain versions
 decode (an exact gather) and run the predecoded plain version, and their
 kernels decode each tile from the codebook in shared memory, so a codes
-variant and its predecoded twin give the same bits on the same entry.
+variant and its predecoded twin give the same bits on the same entry, but
+for the codes screen with a bf16 codebook, which runs on the tensor cores
+(within ``screen_slack`` of its twin).
 """
 from __future__ import annotations
 
@@ -61,6 +68,8 @@ SCREEN_SENT = -1e4       # invalid rolled columns of the ADC screen
 BISECT_ITERS = 26
 MAX_K = 256              # filter slots a thread block holds (8 mask words)
 
+# the card's tolerance for a kernel against its plain version
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)
 KERNELS = ("adc_rowmax", "texture_match", "minutiae_match", "minu_screen",
            "adc_screen", "adc_screen_codes", "adc_rowmax_codes",
            "minu_screen_norm", "graph_filter_packed", "graph_filter",
@@ -269,15 +278,41 @@ def screen_aug(rsq: torch.Tensor, rvalid: torch.Tensor, x_dtype,
     return a1.contiguous(), a2
 
 
+def screen_rowmax_plain(x, dec, rsq, rvalid, block=0) -> torch.Tensor:
+    """The screen's row maxima [NL, B, Lt] before rounding:
+    max_j ((x_i . dec_j + a1_j) + a2_j), a1 and a2 the terms of
+    ``screen_aug``."""
+    a1, a2 = screen_aug(rsq, rvalid, x.dtype, dec.dtype, block)
+    v = (seq_dots(x, dec) + a1[None, :, None, :]) + a2[None, :, None, :]
+    return v.max(dim=-1).values
+
+
+def screen_slack(x, lvalid, raw) -> torch.Tensor:
+    """atol [NL, B] of a screen against its plain version: ``KERNEL_TOL``'s
+    atol, plus, when x is bf16, one bf16 ulp of each row maximum ``raw``
+    (``screen_rowmax_plain``), doubled as the screen doubles it, summed over
+    the valid latent rows. A sum taken in another order (the tensor cores'
+    order) moves a row maximum by a few f32 ulps, which can round it to the
+    neighbouring bf16 value; the relu, the validity and the row sum in
+    index order pass that step on, up to f32 roundings that
+    ``KERNEL_TOL`` covers. Held with ``KERNEL_TOL``'s rtol."""
+    atol = torch.full(raw.shape[:2], KERNEL_TOL["atol"], dtype=torch.float32,
+                      device=raw.device)
+    if x.dtype != torch.bfloat16:
+        return atol
+    ulp = torch.exp2(torch.floor(torch.log2(raw.abs().clamp(min=1e-30)))
+                     - 7.0)
+    return atol + (2.0 * ulp * lvalid[:, None, :]).sum(dim=2)
+
+
 def adc_screen_plain(x, lsq, lvalid, dec, rsq, rvalid, tau=0.0, block=0):
     """sum_i max(2 raw_i + ((6 - lsq_i) - tau), 0) * lvalid_i, the sum in
     row order, with raw_i = max_j ((x_i . dec_j + a1_j) + a2_j) rounded to
     x's type (the TPU screen's output type) and a1, a2 the terms of
     ``screen_aug``; in f32: a1 = -(rsq / 2), a2 = 0 for a valid rolled
     column and -1e4 for an invalid one."""
-    a1, a2 = screen_aug(rsq, rvalid, x.dtype, dec.dtype, block)
-    v = (seq_dots(x, dec) + a1[None, :, None, :]) + a2[None, :, None, :]
-    raw = v.max(dim=-1).values.to(x.dtype).float()       # [NL, B, Lt]
+    raw = screen_rowmax_plain(x, dec, rsq, rvalid, block) \
+        .to(x.dtype).float()                              # [NL, B, Lt]
     t6 = (6.0 - lsq) - tau
     term = torch.clamp(2.0 * raw + t6[:, None, :], min=0.0) \
         * lvalid[:, None, :]
@@ -340,8 +375,9 @@ def adc_screen_codes(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
                      rsq: torch.Tensor, rvalid: torch.Tensor,
                      tau: float = 0.0) -> torch.Tensor:
     """``adc_screen`` over uint8 PQ codes [B, Rt, S] and the codebook
-    [S, C, d] in x's type: bit for bit ``adc_screen`` on the decoded
-    gallery."""
+    [S, C, d] in x's type: in f32 bit for bit ``adc_screen`` on the decoded
+    gallery; with a bf16 codebook (S * d <= 96) the card's tensor cores sum
+    the dots in another order, within ``screen_slack`` of it."""
     NL, Lt, D, B, Rt, dev = _adc_screen_args(x, lsq, lvalid, rsq, rvalid)
     S, C, sd = _check_codes(codes, codebook, B, Rt, D, x.dtype, dev)
     if not _is_cuda(dev):
@@ -394,7 +430,10 @@ def minu_screen(ldes: torch.Tensor, lvalid: torch.Tensor, rdes: torch.Tensor,
     heuristic of ``minu_screen_norm``.
 
     ldes [NT, P, D] (f32 or bf16), lvalid [NT, P] f32; rdes [B, R, D]
-    (ldes's type or int8), rvalid [B, R] f32.
+    (ldes's type or int8), rvalid [B, R] f32. With bf16 ldes (D <= 96) the
+    card's kernel runs on the tensor cores, the descriptors times their
+    validity (0 or 1) rounded to bf16, and sums each dot in another order
+    than the plain version.
     """
     if normalize:
         return minu_screen_norm(ldes, lvalid, rdes, rvalid)

@@ -77,7 +77,8 @@ def test_kernels_build_only_with_nvcc():
     from msu_latentafis_tpu_torch.matcher.kernels import _build
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert {s.name for s in _build.sources()} == {
-        "adc_rowmax.cu", "adc_screen.cu", "minu_screen.cu",
+        "adc_rowmax.cu", "adc_screen.cu", "adc_screen_codes.cu",
+        "minu_screen.cu",
         "minu_screen_norm.cu", "texture_match.cu", "minutiae_match.cu",
         "graph_filter.cu", "graph_filter_infuse.cu", "screen_t.cu",
         "h1_probe.cu", "legality_canary.cu"}
