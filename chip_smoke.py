@@ -10,11 +10,11 @@ Phases (any failure exits nonzero; there is no CPU fallback):
   1. each kernel against its plain PyTorch version on the card, on one
      64-entry gallery block with 2 latents at full widths (Lm 64, Rm 96,
      Lt 448, Rt 448, D 96, T 3): maximum difference against the stated
-     tolerance (rtol 1e-5 / atol 1e-4, ops.KERNEL_TOL; the codes ADC screen
-     with a bf16 codebook, which sums on the tensor cores and rounds its row
+     tolerance (rtol 1e-5 / atol 1e-4, ops.KERNEL_TOL; the ADC screens with
+     a bf16 latent side, which sum on the tensor cores and round their row
      maxima to bf16, within ops.screen_slack), kernel / plain / library
-     times, bound; the f32 codes kernels must equal their predecoded twins
-     bit for bit. The normalized screen
+     times, bound; the codes kernels must equal their predecoded twins bit
+     for bit. The normalized screen
      on the same block; the packed graph filter at stages 0-6 and with a
      stage2_cap below the survivor count, the xy / ori filter, and the
      infuse filter with val and with simi, on sets of that block's width;
@@ -70,7 +70,10 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      breakdown; the typed screens held per chunk, and the entries whose
      membership in the chunk's screen top-k1 and top-m sets differs between
      the kernels and the plain versions counted and printed; normalize=True
-     serving in the same mode and its screen held;
+     serving in the same mode and its screen held; then the two other typed
+     pairs of the predecoded screen, bf16 without tex_int8 and f32 with
+     tex_int8, each serving one 16,384-entry chunk of its own gallery
+     (mates at rank 1, launches counted) and held and timed on that chunk;
   9. the reference-cap shape (Lm = Rm = 128, Lt = Rt = 1000) codes-resident
      with minu_int8 in bf16, the JAX bench's headline mode, serving 8
      latents at m 256 / prescreen 256 / 64 / 1 over 16,384 entries (not
@@ -81,7 +84,8 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      shapes (NL 8, Lt 448, Rt 448, D 96, B 4096), the H1 probe's three
      variants (matmul must equal bcast), the launch-legality canary (a
      legal plan copies, a plan above the card's shared memory or thread
-     limit must raise); each kernel held against its plain version.
+     limit must raise); each kernel held against its plain version
+     (screen_t_bf16, on the tensor cores, within ops.screen_t_tol).
 The kernels' JSON record takes each kernel's launches from the path that
 runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 6) and its numbers from the same path's shapes and data: means per launch
@@ -89,9 +93,10 @@ over one call's chunks (the screens) or over its blocks with and without a
 mate (the dense kernels), so that ms x launches is the call's time in that
 kernel; the filter kernels at the first microbench shape. The last two lines
 of standard output are that record and {"ok": true, "device": {...}}; the
-two kernels redesigned for the tensor cores (the codes ADC screen, the
-minutiae screen) also print their PR 7 times beside this run's. The
-script imports no JAX.
+kernels redesigned for Hopper in the last slice (the predecoded ADC
+screen in every operand pair, the experiment's transposed bf16 screen)
+also print their earlier times beside this run's. The script imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -148,14 +153,12 @@ KERNEL_META = {
 # graph_filter launches graph_filter_packed's kernel after building the
 # cos / sin packs, as fused_graph_filter wraps the same Pallas body
 SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
-# ms per launch of the kernels redesigned for Hopper, before the redesign,
-# on their main paths' shapes (PERF.md section 6: NVIDIA H100 80GB HBM3,
-# 700.00 W, PR 7's chip_smoke.py run); printed beside this run's
-BEFORE_PR8_MS = {"adc_screen_codes": 107.0624,
-                 "adc_screen_codes[bf16]": 156.3905,
-                 "minu_screen": 9.0466,
-                 "minu_screen[bf16,bf16]": 9.0782,
-                 "minu_screen[bf16,int8]": 39.1235}
+# ms per launch of the kernels last redesigned for Hopper, before the
+# redesign, on their main paths' shapes (PERF.md section 6: NVIDIA H100
+# 80GB HBM3, 700.00 W, chip_smoke.py); printed beside this run's
+BEFORE_MS = {"adc_screen": 46.7465,
+             "adc_screen[bf16,int8]": 46.9275,
+             "screen_t_bf16": 80.6312}
 SERVE_NORM = dict(SERVE, normalize=True)
 LARGE_PRINTS = ((128, 1000), (256, 96))   # (P, R) of the large-print block
 DENSE_KERNELS = ("adc_rowmax", "texture_match", "minutiae_match")
@@ -356,11 +359,11 @@ def hold(fn, plain, library, reps: int, twin=None, atol=None,
          keep: bool = False) -> dict:
     """One kernel launch held against its plain version on the same inputs
     (first output within TOL, or within rtol and the elementwise ``atol``
-    of ops.screen_slack for a tensor-core screen that rounds its row maxima
-    to bf16; the other outputs equal) and, for a codes kernel, against its
-    predecoded twin (bit for bit, or within the same ``atol``); kernel,
-    plain and library times; with ``keep`` the kernel's and the plain
-    version's first outputs ("got", "want"). The caller adds the bound."""
+    of a tensor-core screen: ops.screen_slack, ops.screen_t_tol; the other
+    outputs equal) and, for a codes kernel, against its predecoded twin
+    (bit for bit); kernel, plain and library times; with ``keep`` the
+    kernel's and the plain version's first outputs ("got", "want"). The
+    caller adds the bound."""
     import torch
     got = fn()
     want = plain()
@@ -373,8 +376,7 @@ def hold(fn, plain, library, reps: int, twin=None, atol=None,
     if twin is not None:
         tw = twin()
         tw = tw if isinstance(tw, tuple) else (tw,)
-        ok = ok and (all(torch.equal(a, b) for a, b in zip(outs, tw))
-                     if atol is None else within(outs[0], tw[0], tol))
+        ok = ok and all(torch.equal(a, b) for a, b in zip(outs, tw))
     r = dict(max_abs_err=float((outs[0].double()
                                 - wants[0].double()).abs().max()),
              ok=bool(ok), out_bytes=nbytes(*outs), ms=cuda_ms(fn, reps),
@@ -428,17 +430,19 @@ def dense_records(minu, adc, tex, reps: int) -> dict:
     return rec
 
 
-def codes_slack(args: dict, step: int):
-    """ops.screen_slack [NL, B] of adc_screen_codes on ``args``, the row
-    maxima from the plain version ``step`` entries at a time."""
+def screen_slack(args: dict, step: int):
+    """ops.screen_slack [NL, B] of an ADC screen (predecoded or codes) on
+    ``args``, the row maxima from the plain version ``step`` entries at a
+    time (a multiple of an int8 gallery's scale block)."""
     import torch
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     from msu_latentafis_tpu_torch.matcher.texture_match import decode_pq
     B = args["rsq"].shape[0]
     raw = torch.cat([ops.screen_rowmax_plain(
-        args["x"], decode_pq(args["codes"][a:a + step], args["codebook"]),
-        args["rsq"][a:a + step], args["rvalid"][a:a + step])
-        for a in range(0, B, step)], dim=1)
+        args["x"], args["dec"][a:a + step] if "dec" in args
+        else decode_pq(args["codes"][a:a + step], args["codebook"]),
+        args["rsq"][a:a + step], args["rvalid"][a:a + step],
+        args.get("block", 0)) for a in range(0, B, step)], dim=1)
     return ops.screen_slack(args["x"], args["lvalid"], raw)
 
 
@@ -446,8 +450,9 @@ def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
     """The screen kernels on one launch's inputs (``engine.screen_args``;
     either layout may be None); plain versions and library calls ``step``
     entries at a time; adc_screen_codes equal to adc_screen bit for bit
-    when both are given in f32, within ops.screen_slack (as against its
-    plain version) with a bf16 codebook. Keyed by ``tag``."""
+    when both are given; the ADC screens with a bf16 latent side (tensor
+    cores) within ops.screen_slack of their plain versions. Keyed by
+    ``tag``."""
     import torch
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     rec = {}
@@ -469,8 +474,8 @@ def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
             continue
         NL, Lt, D = args["x"].shape
         B, Rt = args["rsq"].shape
-        slack = codes_slack(args, step) if name == "adc_screen_codes" \
-            and args["x"].dtype == torch.bfloat16 else None
+        slack = screen_slack(args, step) \
+            if args["x"].dtype == torch.bfloat16 else None
         r = hold(
             lambda: getattr(ops, name)(**args),
             by_entries(getattr(ops, name + "_plain"), args, step),
@@ -732,7 +737,7 @@ def chunk_shapes(engine, G: int) -> list:
 def check_records(label: str, rec: dict) -> None:
     for name, r in rec.items():
         atol = r.get("atol", TOL["atol"])
-        kind = "" if atol == TOL["atol"] else " (ops.screen_slack, max)"
+        kind = "" if atol == TOL["atol"] else " (tensor-core slack, max)"
         log(f"[{label}] {name}: max_abs_err {r['max_abs_err']:.3e} "
             f"(tol rtol {TOL['rtol']} atol {atol:.3e}{kind}) ok={r['ok']} "
             f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.2f} "
@@ -1462,6 +1467,46 @@ def phase_modes_serving(cb, card, lats, mates, positions):
         if launches[name] != n_launch:
             raise AssertionError(f"{name}: {launches[name]} launches, "
                                  f"expected {n_launch} chunks")
+
+    # the predecoded screen's two other typed pairs on their serving paths
+    # (bf16 compute without tex_int8, f32 with tex_int8), each over one
+    # screen chunk of its own gallery with the mates planted
+    from msu_latentafis_tpu_torch.matcher.engine import MatchEngine
+    del pre
+    torch.cuda.empty_cache()
+    for label, kw in (("bf16", dict(compute_dtype=torch.bfloat16)),
+                      ("f32+tex_int8", dict(tex_int8=True))):
+        e2 = MatchEngine(cb, block_size=64, device="cuda", **kw)
+        G2 = e2.screen_chunk
+        pos2 = [int(G2 * (i + 0.5) / len(lats)) + 7 * i
+                for i in range(len(lats))]
+        g2 = device_synthetic_gallery(e2, G2, seed=3)
+        plant_gallery_entries(g2, e2, mates, pos2)
+        out, first_s, c, steady_s = timed(
+            lambda: e2.match_scores_batch_reranked(lats, g2, **SERVE_BENCH))
+        serving_launched(label, c, g2)
+        mate_at_rank1(out[0], out[1], pos2, f"modes serving {label}")
+        log(f"[modes serving] {label}: {len(lats)} latents x {g2.size} "
+            f"entries (m {SERVE_BENCH['m']}, prescreen "
+            f"{SERVE_BENCH['prescreen_k']}/{SERVE_BENCH['prescreen_lt']}/"
+            f"{SERVE_BENCH['prescreen_t']}): first {first_s:.3f} s, steady "
+            f"{steady_s:.3f} s, {len(lats) / steady_s:.2f} latents/s on "
+            f"{card}; launches {c}")
+        L2 = e2.screen_side(e2.latent_batch(lats), g2,
+                            SERVE_BENCH["prescreen_lt"],
+                            SERVE_BENCH["prescreen_t"])
+        r = screen_records(None, e2.screen_args(L2, g2, slice(0, G2))[1],
+                           None, step=2048, reps=3)
+        check_records(f"kernels, {label} serving screen ({len(lats)} "
+                      f"latents x {G2} entries, x1 per call)", r)
+        for name, rr in r.items():
+            rec[name] = rr
+            launches[name] = c["adc_screen"]
+        if c["adc_screen"] != 1:
+            raise AssertionError(f"{label}: {c['adc_screen']} adc_screen "
+                                 f"launches, expected 1 chunk")
+        del g2
+        torch.cuda.empty_cache()
     return launches, rec
 
 
@@ -1589,7 +1634,8 @@ def phase_scripts(engine, card):
         return torch.matmul(d, xt_).float().amax(dim=1)
     r = hold(lambda: ops.screen_t_bf16(xt, dect),
              by_dect(ops.screen_t_bf16_plain, xt, dect),
-             by_dect(lib_bf16, xt, dect), 3)
+             by_dect(lib_bf16, xt, dect), 3,
+             atol=ops.screen_t_tol(xt, dect, step))
     r["bound"] = bound(2.0 * B * dect.shape[1] * M * dect.shape[2],
                        nbytes(xt, dect) + r["out_bytes"], PEAK_BF16_FLOPS)
     rec["screen_t_bf16"] = r
@@ -1703,7 +1749,9 @@ def main() -> int:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:                    # mangled: <name>_kernel[I<types>...]
             sym = m.group(1)
-            k = re.search(r"(adc_rowmax|adc_screen|minu_screen_norm|"
+            k = re.search(r"(minu_screen_tc|screen_tc|screen_f32|adc_rowmax|"
+                          r"adc_screen|"
+                          r"minu_screen_norm|"
                           r"minu_screen|minutiae_match|texture_match|"
                           r"graph_filter_infuse|graph_filter|screen_t_bf16|"
                           r"screen_t_int8|h1_probe|canary_copy)_kernel",
@@ -1794,9 +1842,9 @@ def main() -> int:
         if name in SHARED_SOURCE:
             kernels[-1]["shares_source_with"] = SHARED_SOURCE[name]
     for k in kernels:
-        if k["name"] in BEFORE_PR8_MS:
+        if k["name"] in BEFORE_MS:
             log(f"[redesigned] {k['name']}: {k['ms']:.4f} ms per launch "
-                f"(PR 7: {BEFORE_PR8_MS[k['name']]} ms), bound "
+                f"(before: {BEFORE_MS[k['name']]} ms), bound "
                 f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "
                 f"{k['library_ms']} ms, plain {k['plain_ms']:.2f} ms, "
                 f"max_abs_err {k['max_abs_err']:.3e}, {k['launches']} "

@@ -1,6 +1,9 @@
-// Shared pieces of the ADC row max (adc_rowmax.cu, predecoded and codes)
-// and the predecoded ADC screen (adc_screen.cu); the codes screen is
-// adc_screen_codes.cu.
+// The CUDA-core tiles of the ADC row max (adc_rowmax.cu, predecoded and
+// codes) and of the shapes the screens' Hopper bodies (screen_body.cuh) do
+// not take: the predecoded screen with bf16 latents and D > 96, or with f32
+// latents beyond the card's shared memory (adc_screen.cu), and the
+// transposed bf16 screen with Da > 98 (screen_t.cu, whose int8 screen
+// keeps these tiles' layout). The screens' main shapes no longer use it.
 //
 // A block holds kTile latent rows and kTile rolled columns in shared memory,
 // each row padded to D + 1 floats, and every one of its 256 threads keeps a

@@ -2,10 +2,13 @@
 //
 // The JAX engine runs in f32 or, for throughput, in bf16, and may keep its
 // gallery descriptors as int8 (tex_int8 / minu_int8). Its kernels cast
-// every tile to the latent operand's type and accumulate in f32. Here a
-// loader widens each value to f32 as it copies a tile to shared memory: a
-// bf16 x bf16, bf16 x int8 or f32 x int8 product is then one f32 product,
-// exact for the first two, and the sums keep their index order.
+// every tile to the latent operand's type and accumulate in f32. Here the
+// CUDA-core kernels widen each value to f32 as they copy a tile to shared
+// memory: a bf16 x bf16, bf16 x int8 or f32 x int8 product is then one f32
+// product, exact for the first two, and the sums keep their index order.
+// The tensor-core screens (bf16 latents) stage an int8 gallery as bf16,
+// exactly, and their products are exact too; only their sums' order
+// differs.
 //
 // Launchers take each operand's type as a code (ops.py DTYPE_CODE) and
 // dispatch to the instantiation for the pairs the JAX engine produces: the

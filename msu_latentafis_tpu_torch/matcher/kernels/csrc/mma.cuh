@@ -1,5 +1,6 @@
-// Tensor-core pieces of the bf16 screens (adc_screen_codes.cu,
-// minu_screen.cu): mma.sync.m16n8k16 bf16 x bf16 -> f32 and ldmatrix, with
+// Tensor-core pieces of the bf16 screens (screen_body.cuh: the ADC screens
+// and the transposed screen; minu_screen.cu): mma.sync.m16n8k16 bf16 x
+// bf16 -> f32 and ldmatrix, with
 // the fragment layouts of the PTX ISA (lane = 4 g + c, g = lane / 4,
 // c = lane % 4):
 //   A 16 x 16 (row-major, k contiguous): a0 = (g, 2c..2c+1),

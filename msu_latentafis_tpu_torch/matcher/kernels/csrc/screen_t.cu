@@ -8,8 +8,7 @@
 //   screen_t_bf16: raw[b, m] = max_j sum_d dect[b, j, d] xt[d, m]
 //     dect [B, Rt, D + 2] bf16 (the gallery side with its two augmented
 //     columns -|dec|^2 / 2 and the invalid sentinel), xt [D + 2, M] bf16
-//     (the latents, M = NL Lt, with two ones rows); f32 sums in index
-//     order, raw f32.
+//     (the latents, M = NL Lt, with two ones rows); f32 sums, raw f32.
 //   screen_t_int8: raw[b, m] = max_j (sum_d dect[b, j, d] xt[d, m]
 //     + corr[b, j]), int8 x int8 products summed in int32 (__dp4a), exact
 //     in any order; corr [B, Rt] int32 carries -|dec|^2 / 2 in x's scale
@@ -19,15 +18,30 @@
 //
 // Bound: operations, 2 M Rt (D + 2) per entry (39.3 MFLOP at the script's
 // NL 8, Lt 448, Rt 448, D 96), against 88 KB (bf16) or 43 KB (int8) per
-// entry read. Design: the layout of adc_tile.cuh with the roles of the two
-// axes as the script has them: a block owns 64 columns m of xt, kept in
-// shared memory, and walks E entries (the script's entries per step, a
-// launch parameter) and each entry's Rt axis in 64-row tiles; each of 256
-// threads keeps a 4 x 4 register tile. The int8 kernel packs four int8
-// values to a 32-bit word in shared memory and sums with __dp4a.
+// entry read. Designs:
+//   - bf16, Da = D + 2 <= 98: tensor cores, screen_body.cuh's body, the
+//     same as the bf16 ADC screens' with the script's operands: the rows
+//     are the M columns of xt, in fixed groups of 512 (7 at the script's
+//     M 3,584), whose A fragments each block reads once from the
+//     transposed xt and keeps for its life; the entries' columns arrive in
+//     tiles of 128 by 4-byte cp.async (a row of 98 bf16 is not 16-byte
+//     aligned) into a ring of three stages. The first 96 features run on
+//     the tensor cores; features 96 and 97 (the aug columns against xt's
+//     ones rows) are added after the dot in f32, in index order, as the
+//     last two terms of the plain version's sum. The blocks of a group take
+//     its entries E at a time (the wrapper's `entries`). Only the order of
+//     the first 96 products' sum differs from the plain version
+//     (ops.screen_t_tol states the tolerance).
+//   - bf16 with Da > 98: adc_tile.cuh's 64 x 64 f32 tiles, widened on
+//     load, sums in index order: a block owns 64 columns m of xt, kept in
+//     shared memory, and walks E entries and each entry's Rt axis in
+//     64-row tiles; each of 256 threads keeps a 4 x 4 register tile.
+//   - int8: the same tiling, four int8 values to a 32-bit word in shared
+//     memory, summed with __dp4a.
 #include <limits.h>
 
 #include "adc_tile.cuh"
+#include "screen_body.cuh"
 
 namespace {
 
@@ -151,11 +165,24 @@ bool bad_shape(int M, int B, int Rt, int D, int E) {
 }  // namespace
 
 // xt [Da, M] bf16, dect [B, Rt, Da] bf16 -> raw [B, M] f32; E entries per
-// block.
+// block at a time.
 extern "C" int afis_screen_t_bf16(const void* xt, const void* dect,
                                   float* raw, int M, int B, int Rt, int Da,
                                   int E, void* stream) {
+  namespace sc = afis_screen;
   if (bad_shape(M, B, Rt, Da, E)) return (int)cudaErrorInvalidValue;
+  const auto* x = static_cast<const afis_t::bf16*>(xt);
+  const auto* d = static_cast<const afis_t::bf16*>(dect);
+  const int Dk = min(Da, sc::kDMax), tail = Da - Dk;
+  if (tail <= 2) {
+    sc::TRows rows{x, raw, M, Dk, tail, B, M, 0};
+    sc::Walk w{B, Rt, sc::kCT, (Rt + sc::kCT - 1) / sc::kCT, 1, E, true};
+    rows.plan_tc(w);
+    const sc::CopyTC<afis_t::bf16, true> src{
+        d, nullptr, nullptr, Da, Dk, tail, sc::copy_chunk(d, Da, Dk)};
+    if (sc::tc_smem_bytes(src, rows) <= sc::smem_optin())
+      return sc::launch_tc(src, rows, w, stream);
+  }
   const size_t bytes = 2 * (size_t)kTile * (Da + 1) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       screen_t_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -163,8 +190,7 @@ extern "C" int afis_screen_t_bf16(const void* xt, const void* dect,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((M + kTile - 1) / kTile, (B + E - 1) / E);
   screen_t_bf16_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      static_cast<const afis_t::bf16*>(xt),
-      static_cast<const afis_t::bf16*>(dect), raw, M, B, Rt, Da, E);
+      x, d, raw, M, B, Rt, Da, E);
   return (int)cudaGetLastError();
 }
 

@@ -9,11 +9,16 @@ from one to the other. ``<wrapper>.launches`` counts kernel launches.
 The plain versions are the kernels' specification: the same arithmetic in
 the same order, so a kernel and its plain version agree bit for bit on the
 card (``chip_smoke.py`` holds them to ``KERNEL_TOL``, rtol 1e-5 /
-atol 1e-4). Two kernels run their bf16 operands on the tensor cores
-(``mma.sync``), which sum each dot in another order: the minutiae screen
-with a bf16 latent side, held to ``KERNEL_TOL``, and the codes ADC screen
-with a bf16 codebook, whose row maxima round to bf16 and may land one bf16
-ulp apart, held to ``screen_slack``.
+atol 1e-4). Four kernels run their bf16 operands on the tensor cores
+(``mma.sync``), which sum each dot in another order:
+
+- the minutiae screen with a bf16 latent side, held to ``KERNEL_TOL``;
+- the predecoded ADC screen with a bf16 latent side (bf16 or int8
+  gallery) and the codes ADC screen with a bf16 codebook, one body
+  (``csrc/screen_body.cuh``): their row maxima round to bf16 and may land
+  one bf16 ulp apart, held to ``screen_slack``; on the same entry the two
+  give the same bits;
+- the experiment's transposed bf16 screen, held to ``screen_t_tol``.
 
 Modes: the descriptor operands come in the types the JAX engine gives its
 kernels: the latent side f32 or bf16 (the compute dtype, any int8 scale
@@ -44,10 +49,9 @@ row maxima in the latent's type. Any other pair of types raises.
 The ``_codes`` variants take uint8 PQ codes [B, Rt, S] and the codebook
 [S, C, sub_dim] in place of predecoded descriptors; their plain versions
 decode (an exact gather) and run the predecoded plain version, and their
-kernels decode each tile from the codebook in shared memory, so a codes
-variant and its predecoded twin give the same bits on the same entry, but
-for the codes screen with a bf16 codebook, which runs on the tensor cores
-(within ``screen_slack`` of its twin).
+kernels decode each tile from the codebook in shared memory and run the
+predecoded kernel's body on it, so a codes variant and its predecoded twin
+give the same bits on the same entry.
 """
 from __future__ import annotations
 
@@ -70,6 +74,19 @@ MAX_K = 256              # filter slots a thread block holds (8 mask words)
 
 # the card's tolerance for a kernel against its plain version
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)
+# A dot summed on the tensor cores against the same dot in index order:
+# the products of bf16 (or int8 widened to bf16) operands are exact in f32,
+# so only the sums differ. In index order each of the n - 1 additions
+# rounds to nearest, within u = 2^-24 of a running sum no larger than
+# S = sum_d |p_d|; on the tensor cores a k-step aligns its 16 products and
+# the accumulator to the largest of them and may truncate, within 2u of
+# that magnitude per addition, itself at most S. Each sum thus lies within
+# 2 n u S of the exact dot (first order), the two within 4 n u S of each
+# other, and a maximum over columns moves by no more than the largest of
+# its dots' moves. This bounds screen_t_bf16 (``screen_t_tol``); the ADC
+# screens round their row maxima to bf16 after the maximum, which
+# ``screen_slack`` bounds.
+TC_SUM_ULPS = 4.0 * 2.0 ** -24
 KERNELS = ("adc_rowmax", "texture_match", "minutiae_match", "minu_screen",
            "adc_screen", "adc_screen_codes", "adc_rowmax_codes",
            "minu_screen_norm", "graph_filter_packed", "graph_filter",
@@ -343,6 +360,11 @@ def adc_screen(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
     predecoded gallery descriptors (x's type or int8), rsq / rvalid [B, Rt]
     f32. An int8 gallery takes ``block``, the JAX engine's block size: one
     scale of the -rsq / 2 row per group of that many entries.
+
+    On the card f32 latents run on the CUDA cores, bit for bit the plain
+    version; bf16 latents with D <= 96 on the tensor cores, within
+    ``screen_slack`` of it (bf16 with D > 96 on the CUDA cores, bit for
+    bit).
     """
     NL, Lt, D, B, Rt, dev = _adc_screen_args(x, lsq, lvalid, rsq, rvalid)
     _check_pair("x", x, "dec", dec)
@@ -914,11 +936,27 @@ def screen_t_bf16_plain(xt, dect):
     return seq_dots(xt.t()[None], dect)[0].max(dim=-1).values
 
 
+def screen_t_tol(xt, dect, step: int = 256) -> torch.Tensor:
+    """atol [B, M] of ``screen_t_bf16`` against its plain version:
+    ``KERNEL_TOL``'s atol plus ``TC_SUM_ULPS`` Da max_j sum_d
+    |dect[b, j, d] xt[d, m]|, the bound on a dot summed in another order
+    (``TC_SUM_ULPS`` says why), with the first 96 products summed on the
+    tensor cores and the rest added in index order after them. Held with
+    ``KERNEL_TOL``'s rtol. ``step`` entries at a time."""
+    Da = xt.shape[0]
+    ax = xt.float().abs()
+    s = torch.cat([torch.matmul(dect[a:a + step].float().abs(), ax)
+                   .amax(dim=1) for a in range(0, dect.shape[0], step)])
+    return KERNEL_TOL["atol"] + TC_SUM_ULPS * Da * s
+
+
 def screen_t_bf16(xt: torch.Tensor, dect: torch.Tensor,
                   entries: int = 8) -> torch.Tensor:
     """The transposed bf16 screen of the ADC-screen experiment: xt [Da, M]
-    and dect [B, Rt, Da] bf16 -> raw [B, M] f32; ``entries`` gallery
-    entries per thread block (the script's entries per step)."""
+    and dect [B, Rt, Da] bf16 -> raw [B, M] f32. On the card the blocks
+    that share a group of 512 columns of xt take the gallery ``entries``
+    at a time (the script's entries per step; 1 to 64), on the tensor
+    cores for Da <= 98, within ``screen_t_tol`` of the plain version."""
     Da, M = xt.shape
     B, Rt, _ = dect.shape
     dev = xt.device

@@ -15,12 +15,20 @@ seed 0) and with its variants:
   transposed      : dots [Rt, NL Lt] per entry, max over Rt
                     (``ops.screen_t``, kernel ``screen_t_bf16``), the int8
                     gallery cast to bf16 beside the bf16 aug columns;
-  transposed_e16  : the same kernel with 16 entries per thread block;
+  transposed_e16  : the same kernel, the blocks of each 512-column group
+                    of xt taking the gallery 16 entries at a time (8 in
+                    ``transposed``);
   transposed_int8 : x quantized to int8, int8 x int8 dots in int32
                     (``screen_t_int8``);
   base_e16        : base again: the port's screen has no entries-per-step
-                    knob (one block per latent and entry), so this is its
-                    own block width.
+                    knob (its persistent blocks take one entry at a time,
+                    all latents at once), so this is its own block width.
+
+On the card ``base`` and ``transposed`` run the same tensor-core body
+(``csrc/screen_body.cuh``) on the same product; they differ in the
+epilogue (the screen rounds each row maximum to bf16 and folds it into
+terms; the transposed screen writes its maxima and leaves the rest to
+PyTorch).
 
 Per variant it prints {"seconds", "tflops", "pairs_per_s"} (tflops counts
 2 NL Lt (D + 2) Rt B, as the script does), and for the transposed and int8

@@ -1,19 +1,24 @@
-"""The tolerance of the two screens the card runs on the tensor cores.
+"""The tolerance of the screens the card runs on the tensor cores.
 
-With a bf16 latent side the minutiae screen, and with a bf16 codebook the
-codes ADC screen, run mma.sync on the card: the products are exact, but
-each D-long dot is summed in the tensor cores' order, not the plain
-versions' index order. Here the plain versions are recomputed on the CPU
-with two other f32 orders, reversed index order and an mma-like k-step
-(16-long chunks summed pairwise, the chunk sums added in order), at the
-reference-cap shapes:
+With a bf16 latent side the minutiae screen and the predecoded ADC screen
+(bf16 or int8 gallery), with a bf16 codebook the codes ADC screen, and the
+experiment's transposed bf16 screen run mma.sync on the card: the products
+are exact (an int8 gallery widens to bf16 exactly), but each dot is summed
+in the tensor cores' order, not the plain versions' index order. Here the
+plain versions are recomputed on the CPU with two other f32 orders,
+reversed index order and an mma-like k-step (16-long chunks summed
+pairwise, the chunk sums added in order), at the serving prescreen's and
+the reference cap's shapes:
 
 - the minutiae screen stays within ops.KERNEL_TOL (rtol 1e-5 / atol 1e-4):
   its maxima are exact in any order and only the dots' roundings move;
-- the codes ADC screen rounds each row maximum to bf16, so a reordered sum
-  can land on the other side of a rounding boundary: a crafted case moves
-  the screen by two bf16 ulps, past KERNEL_TOL, and ops.screen_slack covers
-  it, as it covers the reordered sums at the cap shape.
+- the ADC screens round each row maximum to bf16, so a reordered sum can
+  land on the other side of a rounding boundary: a crafted case moves the
+  screen by two bf16 ulps, past KERNEL_TOL, and ops.screen_slack covers
+  it, as it covers the reordered sums of the codes and predecoded screens;
+- the transposed screen keeps f32 maxima, so its reordered dots move by
+  the f32 roundings alone, within ops.screen_t_tol; a crafted dot with
+  cancellation moves by 2^-8, past KERNEL_TOL.
 
 Then the plain versions against the Pallas kernels in interpret mode where
 no other test holds them: the minutiae screen [bf16, int8] at R = 128 and
@@ -62,14 +67,25 @@ def dots_kstep(a, b, k=16):
 ORDERS = {"reversed": dots_reversed, "kstep16": dots_kstep}
 
 
-def adc_screen_in(dots, x, lsq, lvalid, dec, rsq, rvalid):
+def adc_screen_in(dots, x, lsq, lvalid, dec, rsq, rvalid, block=0):
     """ops.adc_screen_plain (tau 0) with the dots summed by ``dots``."""
-    a1, a2 = ops.screen_aug(rsq, rvalid, x.dtype, dec.dtype)
+    a1, a2 = ops.screen_aug(rsq, rvalid, x.dtype, dec.dtype, block)
     v = (dots(x, dec) + a1[None, :, None, :]) + a2[None, :, None, :]
     raw = v.max(dim=-1).values.to(x.dtype).float()
     term = torch.clamp(2.0 * raw + (6.0 - lsq)[:, None, :], min=0.0) \
         * lvalid[:, None, :]
     return seq_sum(term, dim=2)
+
+
+def screen_t_in(dots, xt, dect, k=96):
+    """ops.screen_t_bf16_plain with the first ``k`` products of each dot
+    summed by ``dots`` and the rest added after them in index order (the
+    card's order: 96 features on the tensor cores, then the tail)."""
+    a, b = xt.float().t()[None], dect.float()
+    acc = dots(a[..., :k], b[..., :k])[0]                  # [B, M, Rt]
+    for d in range(k, a.shape[-1]):
+        acc = acc + a[0, None, :, None, d] * b[:, None, :, d]
+    return acc.max(dim=-1).values
 
 
 def minu_screen_in(dots, ldes, lvalid, rdes, rvalid):
@@ -116,6 +132,92 @@ def test_codes_screen_reordered_within_slack(order):
     slack = ops.screen_slack(xb, lval,
                              ops.screen_rowmax_plain(xb, dec, rsq, rval))
     assert within(got, plain, slack)
+
+
+def _adc_case(rng, NL, Lt, B, Rt, gallery):
+    """bf16 latents against a predecoded gallery (bf16, or int8 with one
+    scale over the B entries), D 96, random validity."""
+    x = torch.as_tensor((0.3 * rng.standard_normal((NL, Lt, 96)))
+                        .astype(np.float32)).to(BF16)
+    if gallery == "int8":
+        dec = torch.as_tensor(rng.integers(-127, 128, (B, Rt, 96))
+                              .astype(np.int8))
+    else:
+        dec = torch.as_tensor((0.3 * rng.standard_normal((B, Rt, 96)))
+                              .astype(np.float32)).to(BF16)
+    lval = torch.as_tensor((rng.random((NL, Lt)) > 0.1).astype(np.float32))
+    rval = torch.as_tensor((rng.random((B, Rt)) > 0.1).astype(np.float32))
+    return dict(x=x, lsq=x.float().pow(2).sum(-1), lvalid=lval, dec=dec,
+                rsq=dec.float().pow(2).sum(-1), rvalid=rval,
+                block=B if gallery == "int8" else 0)
+
+
+@pytest.mark.parametrize("order", list(ORDERS))
+@pytest.mark.parametrize("gallery", ["bf16", "int8"])
+@pytest.mark.parametrize("Rt", [448, 1000])
+def test_adc_screen_reordered_within_slack(order, gallery, Rt):
+    """The predecoded screen [bf16, bf16] and [bf16, int8] at the serving
+    prescreen's rows (2 latents x Lt 64) against Rt 448 and the cap's
+    Rt 1000, its dots in another order: within ops.screen_slack of
+    adc_screen_plain."""
+    rng = np.random.default_rng(Rt + len(gallery))
+    a = _adc_case(rng, NL=2, Lt=64, B=3, Rt=Rt, gallery=gallery)
+    plain = ops.adc_screen_plain(**a)
+    got = adc_screen_in(ORDERS[order], **a)
+    slack = ops.screen_slack(a["x"], a["lvalid"], ops.screen_rowmax_plain(
+        a["x"], a["dec"], a["rsq"], a["rvalid"], a["block"]))
+    assert within(got, plain, slack)
+
+
+def test_int8_widens_to_bf16_exactly():
+    """Every int8 value, widened to bf16 and then to f32, is the value
+    widened to f32 directly: the tensor-core screens stage an int8 gallery
+    in bf16 and their products x dec stay exact."""
+    v = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    assert torch.equal(v.to(BF16).float(), v.float())
+    assert torch.equal(v.float(), torch.arange(-128.0, 128.0))
+
+
+@pytest.mark.parametrize("order", list(ORDERS))
+def test_screen_t_reordered_within_tol(order):
+    """screen_t_bf16 at the script's Da 98 (D 96 + two aug columns against
+    xt's ones rows, as ops.screen_t_operands builds them) with its first 96
+    products in another order: within ops.screen_t_tol of the plain
+    version."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((1, 512, 96))
+                        .astype(np.float32)).to(BF16)
+    dec = torch.as_tensor(rng.integers(-127, 127, (2, 448, 96))
+                          .astype(np.int8))
+    xt, dect = ops.screen_t_operands(
+        x, dec, torch.as_tensor(rng.random((2, 448)).astype(np.float32)),
+        torch.as_tensor((rng.random((2, 448)) > 0.1).astype(np.float32)))
+    plain = ops.screen_t_bf16_plain(xt, dect)
+    got = screen_t_in(ORDERS[order], xt, dect)
+    assert within(got, plain, ops.screen_t_tol(xt, dect))
+
+
+@pytest.mark.parametrize("order", list(ORDERS))
+def test_screen_t_reordered_sum_breaks_kernel_tol(order):
+    """A dot with cancellation: 64 x 64, fifteen 2^-6 x 2^-6, then
+    64 x -64. In index order each 2^-12 is half an ulp of 4096 and lost
+    (ties to even), so the dot is 0; reversed, the small products add
+    below 4096, where they are exact (15 2^-12), and as a k-step the
+    pairwise sums survive (7 2^-11). The screen moves by ~2^-8, past
+    KERNEL_TOL, and ops.screen_t_tol (4 Da 2^-24 sum |p|) covers it."""
+    xv = np.zeros(98, np.float32)
+    dv = np.zeros(98, np.float32)
+    xv[0], dv[0] = 64.0, 64.0
+    xv[1:16], dv[1:16] = 2 ** -6, 2 ** -6
+    xv[16], dv[16] = 64.0, -64.0
+    xt = torch.as_tensor(xv).reshape(98, 1).to(BF16)
+    dect = torch.as_tensor(dv).reshape(1, 1, 98).to(BF16)
+    plain = ops.screen_t_bf16_plain(xt, dect)
+    got = screen_t_in(ORDERS[order], xt, dect)
+    want = {"reversed": 15 * 2 ** -12, "kstep16": 7 * 2 ** -11}[order]
+    assert float(plain) == 0.0 and float(got) == want
+    assert not within(got, plain, TOL["atol"])
+    assert within(got, plain, ops.screen_t_tol(xt, dect))
 
 
 @pytest.mark.parametrize("order", list(ORDERS))
