@@ -12,7 +12,8 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      Lt 448, Rt 448, D 96, T 3): maximum difference against the stated
      tolerance (rtol 1e-5 / atol 1e-4, ops.KERNEL_TOL; the ADC screens with
      a bf16 latent side, which sum on the tensor cores and round their row
-     maxima to bf16, within ops.screen_slack), kernel / plain / library
+     maxima to bf16, within ops.screen_slack; the ADC row max, predecoded
+     and codes, bit for bit on every body), kernel / plain / library
      times, bound; the codes kernels must equal their predecoded twins bit
      for bit. The normalized screen
      on the same block; the packed graph filter at stages 0-6 and with a
@@ -93,9 +94,14 @@ over one call's chunks (the screens) or over its blocks with and without a
 mate (the dense kernels), so that ms x launches is the call's time in that
 kernel; the filter kernels at the first microbench shape. The last two lines
 of standard output are that record and {"ok": true, "device": {...}}; the
-kernels redesigned for Hopper in the last slice (the predecoded ADC
-screen in every operand pair, the experiment's transposed bf16 screen)
-also print their earlier times beside this run's. The script imports no
+kernels redesigned for Hopper in the last two slices (the predecoded ADC
+screen in every operand pair, the experiment's transposed bf16 screen; the
+ADC row max, predecoded and codes, f32 and bf16) also print their earlier
+times beside this run's. Each main path's log line says which body each
+row max launch took (the tensor cores, the f32 body or the CUDA-core
+tiles) and how many rows the tensor cores' exact refine decided between
+two candidates, sent to the exact pass over all columns or found without
+a valid column; each held row max names its body. The script imports no
 JAX.
 """
 from __future__ import annotations
@@ -153,12 +159,20 @@ KERNEL_META = {
 # graph_filter launches graph_filter_packed's kernel after building the
 # cos / sin packs, as fused_graph_filter wraps the same Pallas body
 SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
-# ms per launch of the kernels last redesigned for Hopper, before the
-# redesign, on their main paths' shapes (PERF.md section 6: NVIDIA H100
-# 80GB HBM3, 700.00 W, chip_smoke.py); printed beside this run's
+# ms per launch of the kernels redesigned for Hopper in the last two
+# slices, before their redesign, on their main paths' shapes (PERF.md
+# section 6: NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py): the
+# predecoded and transposed screens, then the ADC row max on the screens'
+# bodies; printed beside this run's
 BEFORE_MS = {"adc_screen": 46.7465,
              "adc_screen[bf16,int8]": 46.9275,
-             "screen_t_bf16": 80.6312}
+             "screen_t_bf16": 80.6312,
+             "adc_rowmax": 0.7299,
+             "adc_rowmax[bf16,bf16]": 0.7343,
+             "adc_rowmax[bf16,int8]": 0.7327,
+             "adc_rowmax_codes": 0.4892,
+             "adc_rowmax_codes[bf16]": 1.2524}
+ROWMAX = ("adc_rowmax", "adc_rowmax_codes")
 SERVE_NORM = dict(SERVE, normalize=True)
 LARGE_PRINTS = ((128, 1000), (256, 96))   # (P, R) of the large-print block
 DENSE_KERNELS = ("adc_rowmax", "texture_match", "minutiae_match")
@@ -174,6 +188,39 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def reset_counts():
+    """Every launch count (and the row max's counts of launches per body)
+    and the row max's refine counts on the card set to 0, just before a
+    main path."""
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    ops.reset_launch_counts()
+    ops.rowmax_counts(reset=True)
+
+
+def rowmax_note() -> str:
+    """Which body each row max launch since reset_counts() took, and the
+    rows its tensor-core refine decided between two candidates, sent to the
+    exact pass over all columns, or found without a valid column."""
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    bodies = {k: {b: n for b, n in getattr(ops, k).bodies.items() if n}
+              for k in ROWMAX}
+    return (f"row max launches by body "
+            f"{ {k: v for k, v in bodies.items() if v} }, refine rows "
+            f"{ops.rowmax_counts()}")
+
+
+def rowmax_body(fn) -> str:
+    """fn() (one row max launch) and the body it took."""
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    before = {k: dict(getattr(ops, k).bodies) for k in ROWMAX}
+    fn()
+    took = [b for k in ROWMAX for b, n in getattr(ops, k).bodies.items()
+            if n > before[k][b]]
+    if len(took) != 1:
+        raise AssertionError(f"one row max launch expected, bodies {took}")
+    return took[0]
 
 
 def cuda_ms(fn, reps: int, warm: bool = True) -> float:
@@ -356,14 +403,14 @@ def within(got, want, atol) -> bool:
 
 
 def hold(fn, plain, library, reps: int, twin=None, atol=None,
-         keep: bool = False) -> dict:
+         keep: bool = False, exact: bool = False) -> dict:
     """One kernel launch held against its plain version on the same inputs
     (first output within TOL, or within rtol and the elementwise ``atol``
-    of a tensor-core screen: ops.screen_slack, ops.screen_t_tol; the other
-    outputs equal) and, for a codes kernel, against its predecoded twin
-    (bit for bit); kernel, plain and library times; with ``keep`` the
-    kernel's and the plain version's first outputs ("got", "want"). The
-    caller adds the bound."""
+    of a tensor-core screen: ops.screen_slack, ops.screen_t_tol; with
+    ``exact`` every output bit for bit; the other outputs equal) and, for a
+    codes kernel, against its predecoded twin (bit for bit); kernel, plain
+    and library times; with ``keep`` the kernel's and the plain version's
+    first outputs ("got", "want"). The caller adds the bound."""
     import torch
     got = fn()
     want = plain()
@@ -371,7 +418,8 @@ def hold(fn, plain, library, reps: int, twin=None, atol=None,
     outs = got if isinstance(got, tuple) else (got,)
     wants = want if isinstance(want, tuple) else (want,)
     tol = TOL["atol"] if atol is None else atol
-    ok = within(outs[0], wants[0], tol) and all(
+    ok = (torch.equal(outs[0], wants[0]) if exact
+          else within(outs[0], wants[0], tol)) and all(
         torch.equal(a, b) for a, b in zip(outs[1:], wants[1:]))
     if twin is not None:
         tw = twin()
@@ -382,7 +430,8 @@ def hold(fn, plain, library, reps: int, twin=None, atol=None,
              ok=bool(ok), out_bytes=nbytes(*outs), ms=cuda_ms(fn, reps),
              plain_ms=cuda_ms(plain, 1, warm=False),
              library_ms=None if library is None else cuda_ms(library, reps),
-             atol=TOL["atol"] if atol is None else float(atol.max()))
+             atol=0.0 if exact else TOL["atol"] if atol is None
+             else float(atol.max()))
     if keep:
         r.update(got=outs[0], want=wants[0])
     return r
@@ -396,11 +445,12 @@ def dense_records(minu, adc, tex, reps: int) -> dict:
     B, Rt, _ = adc["dec"].shape
     r = hold(lambda: ops.adc_rowmax(**adc),
              lambda: ops.adc_rowmax_plain(**adc),
-             lambda: rowmax_library(**adc), reps)
+             lambda: rowmax_library(**adc), reps, exact=True)
     r["library_err"] = float((rowmax_library(**adc).values
                               - ops.adc_rowmax_plain(**adc)[0]).abs().max())
     r["bound"] = bound(2.0 * NL * B * Lt * Rt * D,
                        tensor_bytes(adc) + r["out_bytes"], peak_of(adc["x"]))
+    r["body"] = rowmax_body(lambda: ops.adc_rowmax(**adc))
     rec = {tag("adc_rowmax", adc["x"], adc["dec"]): r}
     best, bestj = ops.adc_rowmax(**adc)
 
@@ -702,10 +752,12 @@ def rowmax_codes_record(adc_codes, adc, reps: int) -> dict:
     r = hold(lambda: ops.adc_rowmax_codes(**adc_codes),
              lambda: ops.adc_rowmax_codes_plain(**adc_codes),
              lambda: rowmax_library(**adc_codes), reps,
-             twin=None if adc is None else lambda: ops.adc_rowmax(**adc))
+             twin=None if adc is None else lambda: ops.adc_rowmax(**adc),
+             exact=True)
     r["bound"] = bound(2.0 * NL * B * Lt * Rt * D,
                        tensor_bytes(adc_codes) + r["out_bytes"],
                        peak_of(adc_codes["x"]))
+    r["body"] = rowmax_body(lambda: ops.adc_rowmax_codes(**adc_codes))
     return r
 
 
@@ -719,6 +771,7 @@ def per_launch(parts) -> dict:
             return None
         return sum(r[key] * w for r, w in parts) / n
     return dict(max_abs_err=max(r["max_abs_err"] for r, _ in parts),
+                body=parts[0][0].get("body"),
                 atol=max(r.get("atol", TOL["atol"]) for r, _ in parts),
                 ok=all(r["ok"] for r, _ in parts), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
@@ -737,12 +790,14 @@ def chunk_shapes(engine, G: int) -> list:
 def check_records(label: str, rec: dict) -> None:
     for name, r in rec.items():
         atol = r.get("atol", TOL["atol"])
-        kind = "" if atol == TOL["atol"] else " (tensor-core slack, max)"
+        kind = "" if atol == TOL["atol"] else " (bit for bit)" if atol == 0 \
+            else " (tensor-core slack, max)"
         log(f"[{label}] {name}: max_abs_err {r['max_abs_err']:.3e} "
             f"(tol rtol {TOL['rtol']} atol {atol:.3e}{kind}) ok={r['ok']} "
             f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.2f} "
             f"library_ms {r['library_ms']} bound_ms {r['bound'][0]:.4f} "
-            f"({r['bound'][1]})")
+            f"({r['bound'][1]})"
+            + (f", body: {r['body']}" if r.get("body") else ""))
     bad = [n for n, r in rec.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"{label}: kernels disagree with their plain "
@@ -829,9 +884,10 @@ def phase_cli(cb, rng, workdir):
              ("minutiae_match", "adc_rowmax", "texture_match"))):
         sdir = os.path.join(workdir, "scores_" + label.replace(" ", "_"))
         paths = [] if label == "config bf16" else ["-c", cbf, "-s", sdir]
-        ops.reset_launch_counts()
+        reset_counts()
         rc = cli.main(["match", "-l", latf, "-g", gdir, *paths, *extra])
         counts = ops.launch_counts()
+        note = rowmax_note()
         if rc != 0:
             raise AssertionError(f"cli ({label}) returned {rc}")
         with open(os.path.join(sdir, "latent0.csv")) as f:
@@ -845,7 +901,7 @@ def phase_cli(cb, rng, workdir):
                    "no rank of the 24 written")
         log(f"[cli] {label}: mate r{mate_idx:03d} at rank 1 ({lines[1]}), "
             f"the 1,000-minutiae print r{big_idx:03d} at {big}, "
-            f"{len(lines) - 1} ranks written, launches {counts}")
+            f"{len(lines) - 1} ranks written, launches {counts}; {note}")
 
 
 def phase_engine(engine, cb, rng, card):
@@ -868,12 +924,13 @@ def phase_engine(engine, cb, rng, card):
         f"card in {time.perf_counter() - t0:.2f} s "
         f"(tex_dec {gal.tex_dec.numel() * 4 / 1e9:.2f} GB)")
 
-    ops.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     scores = engine.match_scores_batch(lats, gal)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    note = rowmax_note()
     t0 = time.perf_counter()
     scores2 = engine.match_scores_batch(lats, gal)
     torch.cuda.synchronize()
@@ -893,7 +950,8 @@ def phase_engine(engine, cb, rng, card):
         raise AssertionError(f"dense path skipped a kernel: {counts}")
     log(f"[engine] {N_LATENTS} latents x {GALLERY_G} entries: first "
         f"{first_s:.3f} s, steady {steady_s:.3f} s, "
-        f"{N_LATENTS / steady_s:.2f} latents/s on {card}; launches {counts}")
+        f"{N_LATENTS / steady_s:.2f} latents/s on {card}; launches {counts}; "
+        f"{note}")
     profile_call("dense", lambda: engine.match_scores_batch(lats, gal))
     # as _match_all launches them: the filter kernels' work depends on the
     # data, so one block without a mate and the first mate's block, each
@@ -969,12 +1027,13 @@ def phase_serving(engine, layouts, lats, positions, dense):
             ("serve 16k normalize", dict(m=SERVE["m"], normalize=True), pre),
             ("serve 16k normalize prescreen", SERVE_NORM, pre)):
         norm = kw.get("normalize", False)
-        ops.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         out[label] = idx, exact, margin, thr = \
             engine.match_scores_batch_reranked(lats, g, **kw)
         sec = time.perf_counter() - t0
         counts[label] = ops.launch_counts()
+        note = rowmax_note()
         serving_launched(label, counts[label], g, norm)
         if norm:
             log(f"[{label}] mates' ranks {mate_ranks(idx, exact, positions)} "
@@ -998,7 +1057,7 @@ def phase_serving(engine, layouts, lats, positions, dense):
         log(f"[{label}] {len(lats)} latents x {g.size} entries, m_pad "
             f"{idx.shape[1]}: {sec:.3f} s; exact == dense at the kept "
             f"indices; margin {np.round(margin, 3).tolist()} threshold "
-            f"{np.round(thr, 3).tolist()}; launches {counts[label]}")
+            f"{np.round(thr, 3).tolist()}; launches {counts[label]}; {note}")
     if not all(np.array_equal(a, b, equal_nan=True) for a, b in zip(
             out["serve 16k prescreen"],
             out["serve 16k prescreen codes-resident"])):
@@ -1040,11 +1099,12 @@ def phase_scale(engine, cb, rng, card):
     layouts = {"predecoded": pre, "codes-resident": codes}
     out, counts = {}, {}
     for label, g in layouts.items():
-        ops.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         first = engine.match_scores_batch_reranked(lats, g, **SERVE)
         first_s = time.perf_counter() - t0
         counts[label] = ops.launch_counts()
+        note = rowmax_note()
         serving_launched(label, counts[label], g)
         t0 = time.perf_counter()
         out[label] = engine.match_scores_batch_reranked(lats, g, **SERVE)
@@ -1058,7 +1118,7 @@ def phase_scale(engine, cb, rng, card):
             f"{SERVE['prescreen_lt']}/{SERVE['prescreen_t']}): first "
             f"{first_s:.3f} s, steady {steady_s:.3f} s, "
             f"{SERVE_LATENTS / steady_s:.2f} latents/s on {card}; launches "
-            f"{counts[label]}")
+            f"{counts[label]}; {note}")
         profile_call(f"serve 100k {label}",
                      lambda: engine.match_scores_batch_reranked(lats, g,
                                                                 **SERVE))
@@ -1104,11 +1164,12 @@ def phase_scale(engine, cb, rng, card):
     check_records("kernels, serving (screens per launch over one call)", rec)
 
     # normalize=True serving on the predecoded gallery, same prescreen
-    ops.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     first = engine.match_scores_batch_reranked(lats, pre, **SERVE_NORM)
     first_s = time.perf_counter() - t0
     counts["normalize"] = ops.launch_counts()
+    note = rowmax_note()
     serving_launched("normalize", counts["normalize"], pre, True)
     t0 = time.perf_counter()
     again = engine.match_scores_batch_reranked(lats, pre, **SERVE_NORM)
@@ -1122,7 +1183,7 @@ def phase_scale(engine, cb, rng, card):
         f"{SERVE['prescreen_t']}): first {first_s:.3f} s, steady "
         f"{steady_s:.3f} s, {SERVE_LATENTS / steady_s:.2f} latents/s on "
         f"{card}; mates' ranks {mate_ranks(again[0], again[1], positions)} "
-        f"(printed, not asserted); launches {counts['normalize']}")
+        f"(printed, not asserted); launches {counts['normalize']}; {note}")
     if counts["normalize"]["minu_screen_norm"] != n_launch:
         raise AssertionError(f"minu_screen_norm: "
                              f"{counts['normalize']['minu_screen_norm']} "
@@ -1267,24 +1328,26 @@ def typed_engine(cb, **kw):
 def timed(fn):
     """The main path fn() with the launch counts set to 0 just before it:
     (result, seconds, the counts just after it, steady seconds of a second
-    call, which must give the same result)."""
+    call, which must give the same result, rowmax_note() of the first
+    call)."""
     import numpy as np
     import torch
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     out = []
     for _ in range(2):
         if not out:
-            ops.reset_launch_counts()
+            reset_counts()
         t0 = time.perf_counter()
         r = fn()
         torch.cuda.synchronize()
-        out.append((r, time.perf_counter() - t0, ops.launch_counts()))
+        out.append((r, time.perf_counter() - t0, ops.launch_counts(),
+                    rowmax_note() if not out else None))
     a, b = out[0][0], out[1][0]
     same = torch.equal(a, b) if isinstance(a, torch.Tensor) else all(
         np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
     if not same:
         raise AssertionError("results not repeatable")
-    return a, out[0][1], out[0][2], out[1][1]
+    return a, out[0][1], out[0][2], out[1][1], out[0][3]
 
 
 def phase_modes_dense(cb, card, lats, mates, positions, dense32):
@@ -1302,7 +1365,7 @@ def phase_modes_dense(cb, card, lats, mates, positions, dense32):
         e = typed_engine(cb, **kw)
         gal = device_synthetic_gallery(e, GALLERY_G, seed=2)
         plant_gallery_entries(gal, e, mates, positions)
-        s, first_s, counts[label], steady_s = timed(
+        s, first_s, counts[label], steady_s, note = timed(
             lambda: e.match_scores_batch(lats, gal))
         if min(counts[label][k] for k in DENSE_KERNELS) <= 0 or any(
                 counts[label][k] for k in counts[label]
@@ -1324,7 +1387,7 @@ def phase_modes_dense(cb, card, lats, mates, positions, dense32):
             f"{steady_s:.3f} s, {len(lats) / steady_s:.2f} latents/s on "
             f"{card}; mates at rank 1, scores "
             f"{[round(float(s[i, p]), 3) for i, p in enumerate(positions)]}; "
-            f"launches {counts[label]}")
+            f"launches {counts[label]}; {note}")
         if label == "bf16":
             continue
         profile_call(f"dense {label}",
@@ -1407,7 +1470,7 @@ def phase_modes_serving(cb, card, lats, mates, positions):
     for label, kw in (("bf16+tex_int8", SERVE_BENCH),
                       ("bf16+tex_int8 normalize",
                        dict(SERVE_BENCH, normalize=True))):
-        out, first_s, counts[label], steady_s = timed(
+        out, first_s, counts[label], steady_s, note = timed(
             lambda: e.match_scores_batch_reranked(lats, pre, **kw))
         serving_launched(label, counts[label], pre, "normalize" in kw)
         idx, exact = out[0], out[1]
@@ -1422,7 +1485,7 @@ def phase_modes_serving(cb, card, lats, mates, positions):
             f"{kw['prescreen_lt']}/{kw['prescreen_t']}): first "
             f"{first_s:.3f} s, steady {steady_s:.3f} s, "
             f"{len(lats) / steady_s:.2f} latents/s on {card}; launches "
-            f"{counts[label]}")
+            f"{counts[label]}; {note}")
         if "normalize" not in kw:
             profile_call(f"serve 100k {label}",
                          lambda: e.match_scores_batch_reranked(lats, pre,
@@ -1482,7 +1545,7 @@ def phase_modes_serving(cb, card, lats, mates, positions):
                 for i in range(len(lats))]
         g2 = device_synthetic_gallery(e2, G2, seed=3)
         plant_gallery_entries(g2, e2, mates, pos2)
-        out, first_s, c, steady_s = timed(
+        out, first_s, c, steady_s, note = timed(
             lambda: e2.match_scores_batch_reranked(lats, g2, **SERVE_BENCH))
         serving_launched(label, c, g2)
         mate_at_rank1(out[0], out[1], pos2, f"modes serving {label}")
@@ -1491,7 +1554,7 @@ def phase_modes_serving(cb, card, lats, mates, positions):
             f"{SERVE_BENCH['prescreen_k']}/{SERVE_BENCH['prescreen_lt']}/"
             f"{SERVE_BENCH['prescreen_t']}): first {first_s:.3f} s, steady "
             f"{steady_s:.3f} s, {len(lats) / steady_s:.2f} latents/s on "
-            f"{card}; launches {c}")
+            f"{card}; launches {c}; {note}")
         L2 = e2.screen_side(e2.latent_batch(lats), g2,
                             SERVE_BENCH["prescreen_lt"],
                             SERVE_BENCH["prescreen_t"])
@@ -1536,7 +1599,7 @@ def phase_cap(cb, rng, card):
         f"{nbytes(gal.tex_codes) / 1e9:.2f} GB, minu_des "
         f"{nbytes(gal.minu_des) / 1e9:.2f} GB ({CAP_G} entries, not the "
         f"bench's 100,000)")
-    out, first_s, counts, steady_s = timed(
+    out, first_s, counts, steady_s, note = timed(
         lambda: e.match_scores_batch_reranked(lats, gal, **SERVE_BENCH))
     serving_launched("cap", counts, gal)
     mate_at_rank1(out[0], out[1], positions, "cap")
@@ -1546,7 +1609,7 @@ def phase_cap(cb, rng, card):
         f"{SERVE_BENCH['prescreen_t']}): first {first_s:.3f} s, steady "
         f"{steady_s:.3f} s, {SERVE_LATENTS / steady_s:.2f} latents/s on "
         f"{card}; mates' ranks {mate_ranks(out[0], out[1], positions)}; "
-        f"launches {counts}")
+        f"launches {counts}; {note}")
     profile_call("serve cap 16k",
                  lambda: e.match_scores_batch_reranked(lats, gal,
                                                        **SERVE_BENCH))

@@ -36,8 +36,10 @@ _L = ctypes.c_longlong
 # Launchers of typed kernels take each operand's type code (ops.DTYPE_CODE)
 # after the sizes.
 SIGNATURES = {
-    "afis_adc_rowmax": [_P] * 7 + [_I] * 7 + [_P],
-    "afis_adc_rowmax_codes": [_P] * 8 + [_I] * 8 + [_P],
+    "afis_adc_rowmax": [_P] * 9 + [_I] * 7 + [_P],
+    "afis_adc_rowmax_codes": [_P] * 10 + [_I] * 8 + [_P],
+    "afis_adc_rowmax_body": [_I] * 9,
+    "afis_adc_rowmax_counts": [_P, _I],
     "afis_adc_screen": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "afis_adc_screen_codes": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
     "afis_minu_screen": [_P] * 5 + [_I] * 7 + [_P],

@@ -166,7 +166,7 @@ extern "C" int afis_adc_screen(const void* x, const float* lsq,
       const uintptr_t a = reinterpret_cast<uintptr_t>(dd);
       const CopyF32<DT> src{dd, a1, a2, D,
                             D % 4 == 0 && a % (4 * sizeof(DT)) == 0};
-      if (f32_smem_bytes(D, rows.group, NL) <= optin)
+      if (f32_smem_bytes(rows) <= optin)
         return launch_f32(src, rows, w, stream);
     }
     return launch_tiles(xx, lsq, lvalid, afis_adc::DecCols<DT>{dd}, a1, a2,

@@ -1,30 +1,37 @@
-// The bodies of the ADC screens, shared by the predecoded screen
-// (adc_screen.cu), the codes-resident screen (adc_screen_codes.cu) and the
-// experiment's transposed bf16 screen (screen_t.cu). Each screen takes the
-// maxima over one entry's Rt rolled columns of the dots of many latent rows
-// against them; persistent blocks (about one per SM) walk the entries:
+// The bodies of the ADC screens and of the ADC row max, shared by the
+// predecoded screen (adc_screen.cu), the codes-resident screen
+// (adc_screen_codes.cu), the experiment's transposed bf16 screen
+// (screen_t.cu) and the row max over predecoded or codes columns
+// (adc_rowmax.cu). Each takes the maxima over one entry's Rt rolled
+// columns of the dots of many latent rows against them; persistent blocks
+// (about one per SM) walk the work items (entry, row group):
 //
 //   - screen_tc_kernel<Src, Rows>: bf16 latent rows on the tensor cores,
 //     mma.sync.m16n8k16 bf16 x bf16 -> f32 (mma.cuh). A group is up to 512
 //     latent rows, 64 per warp, whose A fragments stay in registers; the
 //     entry's columns arrive in tiles of 128 stored [n][kLd] bf16 in shared
-//     memory and feed ldmatrix; each warp folds its row maxima from the
-//     accumulators, then a quad shuffle and a maximum over the warps that
-//     split the columns.
-//   - screen_f32_kernel<Src>: f32 on the CUDA cores, each dot in index
-//     order with one rounding per product and per sum (--fmad=false), bit
-//     for bit the plain version. The entry's column tile is staged once,
-//     widened to f32 and stored d-major; the latent rows stream from L2 in
-//     64-row cp.async tiles against it; 256 threads hold 4 x 8 register
-//     tiles (float4 reads); the running row maxima sit in shared memory.
+//     memory and feed ldmatrix; each warp folds its rows' values from the
+//     accumulators (Rows::Fold: the maximum for a screen, the three largest
+//     with the columns of the first two for the row max), then a quad
+//     shuffle and a fold over the warps that split the columns.
+//   - screen_f32_kernel<Src, Rows>: f32 on the CUDA cores, each dot in
+//     index order with one rounding per product and per sum
+//     (--fmad=false), bit for bit the plain version. The entry's column
+//     tile is staged once, widened to f32 and stored d-major; the latent
+//     rows stream from L2 in 64-row cp.async tiles against it; 256 threads
+//     hold 4 x 8 register tiles (float4 reads); the running row maxima (and
+//     the row max's first argmax) sit in shared memory.
 //
 // The column source (Src) says where a tile comes from: decoded from PQ
-// codes (adc_screen_codes.cu), or copied from predecoded descriptors
-// (CopyTC / CopyF32 below: bf16 as it is, int8 widened exactly, f32 as it
-// is). The rows (Rows) say what the latent side is and what a row maximum
-// becomes: LatRows, the screen's latents [NL, Lt, D], rows rounded to x's
-// type and summed into per-latent terms (finish_group); TRows, the
-// transposed experiment's xt [Da, M] and its raw maxima [B, M].
+// codes (codes_src.cuh), or copied from predecoded descriptors (CopyTC /
+// CopyF32 below: bf16 as it is, int8 widened exactly, f32 as it is). The
+// rows (Rows) say what the latent side is and what a row maximum becomes:
+// LatRows, the screen's latents [NL, Lt, D], rows rounded to x's type and
+// summed into per-latent terms (finish_group); TRows, the transposed
+// experiment's xt [Da, M] and its raw maxima [B, M]; ArgRows, the row
+// max's latents [NL, Lt, D] and its best / bestj [NL, B, Lt], which on the
+// tensor cores keeps a few candidates per row and decides between them
+// with exact dots in index order (bit for bit the plain version).
 //
 // Sources with the same tile and the same rows run the same instructions
 // in the same order, so the codes and predecoded screens give the same bits
@@ -94,6 +101,43 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Eight consecutive values of a row, widened to f32: one 16-byte (bf16,
+// two for f32) or 8-byte (int8) load where p is aligned to it, else eight.
+template <class T>
+__device__ __forceinline__ void load8(const T* p, float v[8]) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if ((a & 15) == 0) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+      const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[2 * k] = __uint_as_float(wd[k] << 16);
+        v[2 * k + 1] = __uint_as_float(wd[k] & 0xffff0000u);
+      }
+      return;
+    }
+  } else if constexpr (std::is_same<T, int8_t>::value) {
+    if ((a & 7) == 0) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k] = (float)(int8_t)(((k < 4 ? u.x : u.y) >> (8 * (k & 3))) & 0xff);
+      return;
+    }
+  } else {
+    if ((a & 15) == 0) {
+      const float4 f0 = __ldg(reinterpret_cast<const float4*>(p));
+      const float4 f1 = __ldg(reinterpret_cast<const float4*>(p) + 1);
+      v[0] = f0.x; v[1] = f0.y; v[2] = f0.z; v[3] = f0.w;
+      v[4] = f1.x; v[5] = f1.y; v[6] = f1.z; v[7] = f1.w;
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = afis_t::widen(p[k]);
+}
+
 // ---------------------------------------------------------------------------
 // the walk: which (entry, row group, column tile) a block takes next
 // ---------------------------------------------------------------------------
@@ -133,6 +177,40 @@ struct Walk {
     return s;
   }
   __device__ int ncols(int t) const { return min(ct, Rt - t * ct); }
+};
+
+// ---------------------------------------------------------------------------
+// the screens' fold on the tensor cores
+// ---------------------------------------------------------------------------
+
+// The running maximum of each of a lane's 8 rows (rows g, g + 8 of its
+// warp's 4 m-tiles); at a group's end the quad lanes, which hold the same
+// rows, reduce, and one lane per column slot writes the slot's maxima.
+struct MaxFold {
+  float mx[4][2];
+
+  __device__ void reset() {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) mx[m][0] = mx[m][1] = -INFINITY;
+  }
+  __device__ void add(int m, int h, float v0, int, float v1, int) {
+    mx[m][h] = fmaxf(mx[m][h], fmaxf(v0, v1));
+  }
+  // part[cw * wr * kWarpRows + r]: group row r's maximum over slot cw.
+  __device__ void to_part(float* part, int rw, int wr, int cw,
+                          int wc) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = mx[m][h];
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        const int r = rw * kWarpRows + m * 16 + (lane >> 2) + 8 * h;
+        if (cw < wc && (lane & 3) == 0) part[cw * wr * kWarpRows + r] = v;
+      }
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -183,6 +261,10 @@ struct LatRows {
   float tau;
   float* term;     // [kRowsTC] in shared memory (tensor-core body)
   float* lsum;     // [NL]
+  float* rmax;     // [group] running row maxima (f32 body)
+
+  using Fold = MaxFold;
+  static constexpr bool kKeepA = true;   // fragments kept across entries
 
   // Tensor-core groups: whole latents where a latent fits in 512 rows (a
   // block keeps its group; no partial sums cross blocks), else 512 rows
@@ -221,6 +303,48 @@ struct LatRows {
       return v;
     }, term, lsum, st.b, st.g, *this);
   }
+  template <class Src>
+  __device__ void finish(const MaxFold& f, float* part, int rw, int wr,
+                         int cw, int wc, Step st, const Src&,
+                         const Walk&) const {
+    f.to_part(part, rw, wr, cw, wc);
+    finish(part, wr * kWarpRows, wc, st);
+  }
+
+  // f32 body: v = (dot + a1) + a2 folded into rmax, then finish_group.
+  size_t f32_rows_bytes() const {
+    return padded((size_t)group * 4) + padded((size_t)NL * 4);
+  }
+  __device__ void init_f32(unsigned char*& sm) {
+    rmax = reinterpret_cast<float*>(carve(sm, (size_t)group * 4));
+    lsum = reinterpret_cast<float*>(carve(sm, (size_t)NL * 4));
+  }
+  __device__ void begin_f32(Step, int gn) const {
+    for (int r = threadIdx.x; r < gn; r += kThreads) rmax[r] = -INFINITY;
+  }
+  // The register tile acc of rows r0 + 4 tr .. of the group against
+  // columns 4 tc .. and 64 + 4 tc .. of the step's tile.
+  __device__ void fold_f32(const float (&acc)[4][8], const float2* av,
+                           int r0, int gn, Step, const Walk&) const {
+    const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 u = av[j < 4 ? tc * 4 + j : 64 + tc * 4 + j - 4];
+        m = fmaxf(m, (acc[i][j] + u.x) + u.y);
+      }
+      for (int off = 8; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const int r = r0 + tr * 4 + i;
+      if (tc == 0 && r < gn) rmax[r] = fmaxf(rmax[r], m);
+    }
+  }
+  __device__ void finish_f32(Step st) const {
+    finish_group<float>([&](int r) { return rmax[r]; }, rmax, lsum, st.b,
+                        st.g, *this);
+  }
 };
 
 // The transposed experiment's latent side xt [Da, M] bf16 (m contiguous)
@@ -233,6 +357,9 @@ struct TRows {
   const bf16* xt;
   float* raw;
   int M, Dk, tail, B, rows, group;
+
+  using Fold = MaxFold;
+  static constexpr bool kKeepA = true;
 
   void plan_tc(Walk& w) {
     w.fixed = true;
@@ -293,6 +420,420 @@ struct TRows {
       raw[(size_t)st.b * M + g0 + r] = v;
     }
   }
+  template <class Src>
+  __device__ void finish(const MaxFold& f, float* part, int rw, int wr,
+                         int cw, int wc, Step st, const Src&,
+                         const Walk&) const {
+    f.to_part(part, rw, wr, cw, wc);
+    finish(part, wr * kWarpRows, wc, st);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the row max's latent rows: best / bestj, exact
+// ---------------------------------------------------------------------------
+
+// The three largest values of a row over some columns, with the columns of
+// the first two; a value reached by several columns counts once for each,
+// so three columns tied at the top give v3 == v1.
+struct Top3 {
+  float v1, v2, v3;
+  int j1, j2;
+};
+
+// The three largest of the values in a and b, with the first two's columns.
+__device__ __forceinline__ Top3 merge_top(Top3 a, Top3 b) {
+  if (b.v1 > a.v1) {
+    const Top3 t = a;
+    a = b;
+    b = t;
+  }
+  if (b.v1 > a.v2) {
+    a.v3 = fmaxf(a.v2, b.v2);
+    a.v2 = b.v1;
+    a.j2 = b.j1;
+  } else {
+    a.v3 = fmaxf(a.v3, b.v1);
+  }
+  return a;
+}
+
+__device__ __forceinline__ Top3 shfl_xor_top(const Top3& t, int off) {
+  return Top3{__shfl_xor_sync(0xffffffffu, t.v1, off),
+              __shfl_xor_sync(0xffffffffu, t.v2, off),
+              __shfl_xor_sync(0xffffffffu, t.v3, off),
+              __shfl_xor_sync(0xffffffffu, t.j1, off),
+              __shfl_xor_sync(0xffffffffu, t.j2, off)};
+}
+
+// The row max's fold on the tensor cores: a Top3 for each of a lane's 8
+// rows, branch-free.
+struct ArgFold {
+  Top3 t[4][2];
+
+  __device__ void reset() {
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        t[m][h] = Top3{-INFINITY, -INFINITY, -INFINITY, 0, 0};
+  }
+  __device__ __forceinline__ static void put(Top3& a, float v, int j) {
+    const bool up1 = v > a.v1, up2 = v > a.v2;
+    a.j2 = up1 ? a.j1 : (up2 ? j : a.j2);
+    a.j1 = up1 ? j : a.j1;
+    a.v3 = fmaxf(a.v3, fminf(v, a.v2));
+    a.v2 = fmaxf(a.v2, fminf(v, a.v1));
+    a.v1 = fmaxf(a.v1, v);
+  }
+  __device__ void add(int m, int h, float v0, int j0, float v1, int j1) {
+    put(t[m][h], v0, j0);
+    put(t[m][h], v1, j1);
+  }
+};
+
+// ops.rowmax_margin: e = (2^-21 (D + 32) |x_i|_1) max|c| bounds how far
+// one column's value on the tensor cores, 2 dot + ((6 - lsq) - rsq), may
+// lie from the plain version's before the epilogue's roundings
+// (2 TC_SUM_ULPS (D + 32) S, S <= |x_i|_1 max|c| the sum of |products|;
+// ops.py states the derivation).
+__device__ __forceinline__ float rowmax_margin(float xl1, float cmax, int D) {
+  return (ldexpf((float)(D + 32), -21) * xl1) * cmax;
+}
+
+// ops.rowmax_threshold: every column whose plain value can be the row's
+// maximum has a tensor-core value >= t1 - 2 ((e + 2^-21 |t1|) + 2^-118),
+// t1 the tensor-core maximum (the |t1| term covers the epilogue's
+// roundings and this expression's own, 2^-118 subnormal products and
+// values).
+__device__ __forceinline__ float rowmax_threshold(float t1, float e) {
+  const float m = (e + fabsf(t1) * 0x1p-21f) + 0x1p-118f;
+  return t1 - (m + m);
+}
+
+// The row max's group: a work item is (entry, group of rows) and a block
+// keeps its group, taking that group's entries in turn with the group's
+// other blocks (Walk::fixed, plan_grid), `blocks` blocks in all. Of the
+// groups of at most max_group rows (64 rows times a power of two, or all
+// the rows in one group, when pow2: the tensor cores' warps split a group
+// of 64 w rows evenly only for w a power of two; else any multiple of 64),
+// the largest whose share of the blocks' time spent on rows,
+// rows B / (waves blocks group), is within 0.02 of the best share.
+inline int rowmax_group(int rows, int B, int blocks, int max_group,
+                        bool pow2) {
+  const int all = (rows + 63) / 64 * 64;
+  const auto share = [&](int g) {
+    const int ng = (rows + g - 1) / g;
+    const int per = max(1, min(B, blocks / ng));
+    const int waves = (B + per - 1) / per;
+    return (double)rows * B / ((double)waves * blocks * g);
+  };
+  const auto allowed = [&](int g) {
+    return g <= max_group && (!pow2 || g == all || (g & (g - 1)) == 0);
+  };
+  double top = 0.0;
+  for (int g = 64; g <= min(all, max_group); g += 64)
+    if (allowed(g)) top = fmax(top, share(g));
+  for (int g = min(all, max_group) / 64 * 64; g > 64; g -= 64)
+    if (allowed(g) && share(g) >= top - 0.02) return g;
+  return 64;
+}
+
+// The number of SMs of the current device (1 if it cannot be asked).
+inline int sm_count() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev)
+             != cudaSuccess)
+    return 1;
+  return max(v, 1);
+}
+
+// The row max's latent side x [rows = NL Lt, D] (XT f32 or bf16) and its
+// outputs best / bestj [NL, B, Lt]: the maximum over an entry's columns j of
+//   s_j = (2 dot_j + ((6 - lsq_i) - rsq_j)) + (rvalid_j - 1) 1e30
+// and the first j reaching it. The column source's epilogue values are
+// (rsq_j, rvalid_j). A work item is (entry, row group); rows do not add
+// across a group, so groups are sized to fill the card (rowmax_group) and
+// a block keeps its group (a fixed walk).
+//   - f32 body: each s_j as the plain version computes it; a thread folds
+//     its 8 columns in column order with a strict >, a half-warp merges
+//     with the smaller column on equal values, and the running (value,
+//     column) of each row sits in shared memory, updated with a strict >
+//     (tiles arrive in column order): the first argmax, bit for bit.
+//   - tensor cores: s_j with the tensor cores' dot (only the order of its
+//     f32 sum differs), invalid columns -inf; each lane keeps a Top3 per
+//     row, merged over the quad and the column slots. Then per row, with
+//     thr = rowmax_threshold(t1, rowmax_margin(...)): no valid column
+//     (t1 = -inf) gives (-1e30, 0), the plain version's value and index
+//     for every column at -1e30 (|2 dot + ((6 - lsq) - rsq)| < 2^75, far
+//     beyond the matcher's values); v3 >= thr (three or more candidates)
+//     sends the row to an exact pass over all its columns by the whole
+//     block;
+//     else the candidates j1 and, if v2 >= thr, j2 are recomputed in index
+//     order (Src::dot_exact) with the plain epilogue and the larger taken,
+//     the smaller column on equal values. The exact maximum's column
+//     always lies at or above thr, so every path gives the plain version's
+//     bits. counts[0..2] add the rows resolved between two candidates, the
+//     rows sent to the exact pass and the rows with no valid column.
+template <class XT>
+struct ArgRows {
+  const XT* x;
+  const float* lsq;           // [rows]
+  const float* rsq;           // [B, Rt]
+  const float* rvalid;        // [B, Rt] 0 / 1
+  const float* xl1;           // [rows] |x_r|_1 (tensor cores)
+  const float* cmax;          // [B] max |c| of each entry (tensor cores)
+  float* best;
+  int* bestj;
+  unsigned long long* counts;  // [3] (tensor cores)
+  int NL, Lt, B, Rt, D, rows, group;
+  float* sv;                  // [3][kRowsTC] slots' Top3 values
+  int* sj;                    // [2][kRowsTC] and columns
+  int* over;                  // [kRowsTC] rows for the exact pass, count
+  float* rmax;                // [group] running maxima (f32 body)
+  int* rarg;                  // [group] and their columns
+  float* t6s;                 // [group] 6 - lsq
+
+  using Fold = ArgFold;
+  // The fragments are reloaded for every entry (from L2), so that they are
+  // dead, and their registers free, while finish refines the rows.
+  static constexpr bool kKeepA = false;
+  struct RowState {
+    float t6[4][2];           // 6 - lsq of rows g, g + 8 of each m-tile
+  };
+
+  // Fixed groups of rowmax_group rows.
+  void plan(Walk& w, int blocks, int max_group, bool pow2) {
+    group = rowmax_group(rows, B, blocks, max_group, pow2);
+    w.fixed = true;
+    w.E = 1;
+    w.ngroups = (rows + group - 1) / group;
+  }
+
+  __device__ size_t out_at(int row, int b) const {
+    const int n = row / Lt;
+    return ((size_t)n * B + b) * Lt + (row - n * Lt);
+  }
+  // The plain version's s for a dot computed in index order.
+  __device__ float simi(float dot, float t6, int b, int j) const {
+    const size_t o = (size_t)b * Rt + j;
+    return (2.f * dot + (t6 - rsq[o])) + (rvalid[o] - 1.f) * 1e30f;
+  }
+  __device__ int group_rows(int g) const { return min(group, rows - g * group); }
+
+  // --- tensor cores --------------------------------------------------------
+  size_t smem_bytes() const {
+    return padded(3 * kRowsTC * 4) + padded(2 * kRowsTC * 4)
+        + padded((kRowsTC + 1) * 4);
+  }
+  __device__ void init(unsigned char*& sm) {
+    sv = reinterpret_cast<float*>(carve(sm, 3 * kRowsTC * 4));
+    sj = reinterpret_cast<int*>(carve(sm, 2 * kRowsTC * 4));
+    over = reinterpret_cast<int*>(carve(sm, (kRowsTC + 1) * 4));
+  }
+  // The A fragments of rows r0 .. r0 + 63 and 6 - lsq of the lane's rows.
+  __device__ void load(uint32_t a[4][kMaxKSteps][4], RowState& rs,
+                       int r0) const {
+    const auto one = [](int) { return 1.f; };
+    const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int ks = 0; ks < kMaxKSteps; ++ks)
+        load_a(a[m][ks], x, rows, D, r0 + 16 * m, ks, one);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 16 * m + g + 8 * h;
+        rs.t6[m][h] = r < rows ? 6.f - lsq[r] : 0.f;
+      }
+    }
+  }
+  __device__ float value(float c, float2 u, const RowState& rs, int m, int h,
+                         bool in) const {
+    return in && u.y == 1.f ? 2.f * c + (rs.t6[m][h] - u.x) : -INFINITY;
+  }
+  // Row `row` over all of entry b's columns in index order, by the whole
+  // block (thread t takes columns t, t + 256, ..), the first maximum;
+  // sv[0..7] / sj[0..7] hold the warps' results. Every thread calls it.
+  template <class Src>
+  __device__ void exact_row(int row, int b, const Src& src,
+                            const Walk& w) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const float t6 = 6.f - lsq[row];
+    const XT* xr = x + (size_t)row * D;
+    float bv = -INFINITY;
+    int bi = 0;
+    for (int j = threadIdx.x; j < Rt; j += kThreads) {
+      const float s = simi(src.dot_exact(xr, b, j, w), t6, b, j);
+      if (s > bv) {
+        bv = s;
+        bi = j;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+      if (ov > bv || (ov == bv && oi < bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      sv[warp] = bv;
+      sj[warp] = bi;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int q = 1; q < kWarps; ++q)
+        if (sv[q] > bv || (sv[q] == bv && sj[q] < bi)) {
+          bv = sv[q];
+          bi = sj[q];
+        }
+      const size_t o = out_at(row, b);
+      best[o] = bv;
+      bestj[o] = bi;
+    }
+    __syncthreads();
+  }
+  template <class Src>
+  __device__ void finish(const ArgFold& f, float*, int rw, int wr, int cw,
+                         int wc, Step st, const Src& src,
+                         const Walk& w) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int slot = wr * kWarpRows;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        Top3 t = f.t[m][h];
+        t = merge_top(t, shfl_xor_top(t, 1));
+        t = merge_top(t, shfl_xor_top(t, 2));
+        const int k = cw * slot + rw * kWarpRows + m * 16 + (lane >> 2)
+            + 8 * h;
+        if (cw < wc && (lane & 3) == 0) {
+          sv[k] = t.v1;
+          sv[kRowsTC + k] = t.v2;
+          sv[2 * kRowsTC + k] = t.v3;
+          sj[k] = t.j1;
+          sj[kRowsTC + k] = t.j2;
+        }
+      }
+    if (threadIdx.x == 0) over[kRowsTC] = 0;
+    __syncthreads();
+    const int g0 = st.g * group, gn = group_rows(st.g), b = st.b;
+    unsigned refined = 0, empty = 0;
+    for (int r = threadIdx.x; r < gn; r += kThreads) {
+      Top3 t{sv[r], sv[kRowsTC + r], sv[2 * kRowsTC + r], sj[r],
+             sj[kRowsTC + r]};
+      for (int q = 1; q < wc; ++q) {
+        const int k = q * slot + r;
+        t = merge_top(t, Top3{sv[k], sv[kRowsTC + k], sv[2 * kRowsTC + k],
+                              sj[k], sj[kRowsTC + k]});
+      }
+      const int row = g0 + r;
+      const size_t o = out_at(row, b);
+      if (t.v1 == -INFINITY) {
+        best[o] = -1e30f;
+        bestj[o] = 0;
+        ++empty;
+        continue;
+      }
+      const float thr = rowmax_threshold(
+          t.v1, rowmax_margin(xl1[row], cmax[b], D));
+      if (t.v3 >= thr) {
+        over[atomicAdd(&over[kRowsTC], 1)] = row;
+        continue;
+      }
+      const float t6 = 6.f - lsq[row];
+      const XT* xr = x + (size_t)row * D;
+      float s = simi(src.dot_exact(xr, b, t.j1, w), t6, b, t.j1);
+      int j = t.j1;
+      if (t.v2 >= thr) {
+        ++refined;
+        const float s2 = simi(src.dot_exact(xr, b, t.j2, w), t6, b, t.j2);
+        if (s2 > s || (s2 == s && t.j2 < j)) {
+          s = s2;
+          j = t.j2;
+        }
+      }
+      best[o] = s;
+      bestj[o] = j;
+    }
+    __syncthreads();
+    const int n_over = over[kRowsTC];
+    for (int k = 0; k < n_over; ++k) exact_row(over[k], b, src, w);
+    refined = __reduce_add_sync(0xffffffffu, refined);
+    empty = __reduce_add_sync(0xffffffffu, empty);
+    if (lane == 0 && refined) atomicAdd(&counts[0], (unsigned long long)refined);
+    if (lane == 0 && empty) atomicAdd(&counts[2], (unsigned long long)empty);
+    if (threadIdx.x == 0 && n_over)
+      atomicAdd(&counts[1], (unsigned long long)n_over);
+  }
+
+  // --- f32 body ------------------------------------------------------------
+  size_t f32_rows_bytes() const { return 3 * padded((size_t)group * 4); }
+  __device__ void init_f32(unsigned char*& sm) {
+    rmax = reinterpret_cast<float*>(carve(sm, (size_t)group * 4));
+    rarg = reinterpret_cast<int*>(carve(sm, (size_t)group * 4));
+    t6s = reinterpret_cast<float*>(carve(sm, (size_t)group * 4));
+  }
+  __device__ void begin_f32(Step st, int gn) const {
+    for (int r = threadIdx.x; r < gn; r += kThreads) {
+      rmax[r] = -INFINITY;
+      rarg[r] = 0;
+      t6s[r] = 6.f - lsq[st.g * group + r];
+    }
+  }
+  __device__ void fold_f32(const float (&acc)[4][8], const float2* av,
+                           int r0, int gn, Step st, const Walk& w) const {
+    const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+    const int ncols = w.ncols(st.t), c0 = st.t * w.ct;
+    float cr[8], mk[8];
+    int col[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      col[j] = j < 4 ? tc * 4 + j : 64 + tc * 4 + j - 4;
+      const float2 u = av[col[j]];
+      cr[j] = u.x;
+      mk[j] = (u.y - 1.f) * 1e30f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + tr * 4 + i;
+      const float t6 = t6s[min(r, gn - 1)];
+      float bv = -INFINITY;
+      int bi = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float s = (2.f * acc[i][j] + (t6 - cr[j])) + mk[j];
+        if (col[j] < ncols && s > bv) {
+          bv = s;
+          bi = c0 + col[j];
+        }
+      }
+      for (int off = 8; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (ov > bv || (ov == bv && oi < bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (tc == 0 && r < gn && bv > rmax[r]) {
+        rmax[r] = bv;
+        rarg[r] = bi;
+      }
+    }
+  }
+  __device__ void finish_f32(Step st) const {
+    const int g0 = st.g * group, gn = group_rows(st.g);
+    for (int r = threadIdx.x; r < gn; r += kThreads) {
+      const size_t o = out_at(g0 + r, st.b);
+      best[o] = rmax[r];
+      bestj[o] = rarg[r];
+    }
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -319,7 +860,7 @@ __global__ void __launch_bounds__(kThreads, 1) screen_tc_kernel(
 
   uint32_t a[4][kMaxKSteps][4];   // this warp's 64 rows, all of D
   typename Rows::RowState rs;
-  float mx[4][2];                 // running maxima of rows g, g + 8
+  typename Rows::Fold fo;         // rows g, g + 8 of each m-tile
   int loaded = -1, wr = 0, wc = 0, rw = 0, cw = 0;
   for (int i = 0; st.b < w.B; ++i) {
     const Step nx = w.next(st);
@@ -331,12 +872,11 @@ __global__ void __launch_bounds__(kThreads, 1) screen_tc_kernel(
       wc = kWarps / wr;
       rw = warp % wr;
       cw = warp / wr;
-      if (st.g != loaded) {
+      if (!Rows::kKeepA || st.g != loaded) {
         rows.load(a, rs, st.g * rows.group + rw * kWarpRows);
         loaded = w.fixed || w.ngroups == 1 ? st.g : -1;
       }
-#pragma unroll
-      for (int m = 0; m < 4; ++m) mx[m][0] = mx[m][1] = -INFINITY;
+      fo.reset();
     }
     if (cw < wc) {
       const int ncols = w.ncols(st.t);
@@ -368,35 +908,22 @@ __global__ void __launch_bounds__(kThreads, 1) screen_tc_kernel(
         for (int q = 0; q < 2; ++q) {
           if (q == 1 && !two) break;
           const int col = (n + q) * 8 + 2 * cq;
+          const int j = st.t * w.ct + col;           // the entry's column
           const float2 u0 = tl.aug(col), u1 = tl.aug(col + 1);
           const bool in0 = col < ncols, in1 = col + 1 < ncols;
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
             const float* c = acc[q][m];
-            mx[m][0] = fmaxf(mx[m][0],
-                             fmaxf(rows.value(c[0], u0, rs, m, 0, in0),
-                                   rows.value(c[1], u1, rs, m, 0, in1)));
-            mx[m][1] = fmaxf(mx[m][1],
-                             fmaxf(rows.value(c[2], u0, rs, m, 1, in0),
-                                   rows.value(c[3], u1, rs, m, 1, in1)));
+            fo.add(m, 0, rows.value(c[0], u0, rs, m, 0, in0), j,
+                   rows.value(c[1], u1, rs, m, 0, in1), j + 1);
+            fo.add(m, 1, rows.value(c[2], u0, rs, m, 1, in0), j,
+                   rows.value(c[3], u1, rs, m, 1, in1), j + 1);
           }
         }
       }
     }
-    if (st.t == w.ntiles - 1) {
-      // quad lanes hold the same rows: reduce, then one max per column slot
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = mx[m][h];
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-          const int r = rw * kWarpRows + m * 16 + (lane >> 2) + 8 * h;
-          if (cw < wc && (lane & 3) == 0) part[cw * wr * kWarpRows + r] = v;
-        }
-      rows.finish(part, wr * kWarpRows, wc, st);
-    }
+    if (st.t == w.ntiles - 1)
+      rows.finish(fo, part, rw, wr, cw, wc, st, src, w);
     st = nx;
   }
 }
@@ -505,6 +1032,29 @@ struct CopyTC {
     }
   }
 
+  // The dot of latent row xr with column j of entry b in index order, one
+  // rounding per product and per sum (the plain version's order).
+  template <class XT>
+  __device__ float dot_exact(const XT* xr, int b, int j,
+                             const Walk& w) const {
+    const T* c = dec + ((size_t)b * w.Rt + j) * Ds;
+    float acc = 0.f;
+    int d = 0;
+#pragma unroll 4
+    for (; d + 8 <= Dk; d += 8) {      // 8 at a time: the loads run ahead
+      float xv[8], cv[8];
+      load8(xr + d, xv);
+      load8(c + d, cv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        acc = __fadd_rn(acc, __fmul_rn(xv[k], cv[k]));
+    }
+    for (; d < Dk; ++d)
+      acc = __fadd_rn(acc, __fmul_rn(afis_t::widen(xr[d]),
+                                     afis_t::widen(c[d])));
+    return acc;
+  }
+
   __device__ void begin(In& in, Step st, const Walk& w) {
     __syncthreads();                    // the zeroed tiles
     in.ahead = st;
@@ -585,10 +1135,12 @@ __device__ __forceinline__ void fetch_rows(float* xs, const float* x,
   cp_commit();
 }
 
-// Shared memory of the f32 body beside the source's own.
-inline size_t f32_smem_bytes(int D, int group, int NL) {
-  return padded((size_t)D * kCT * 4) + padded((size_t)D * kLdx * 4)
-      + padded(kCT * 8) + padded((size_t)group * 4) + padded((size_t)NL * 4);
+// Shared memory of the f32 body beside the source's own: the column tile,
+// a row tile, the tile's epilogue values and the rows' running state.
+template <class Rows>
+size_t f32_smem_bytes(const Rows& rows) {
+  return padded((size_t)rows.D * kCT * 4) + padded((size_t)rows.D * kLdx * 4)
+      + padded(kCT * 8) + rows.f32_rows_bytes();
 }
 
 // f32 groups: up to kMaxRowsF32 rows, walked in order by every block.
@@ -601,17 +1153,19 @@ inline void plan_f32(LatRows<float>& p, Walk& w) {
 // Src: smem_bytes(), init(sm), a register state In, fetch(in, st, w) (the
 // next tile's inputs, while the current one computes) and store(in, ds, av,
 // st, w) (the step's tile, widened to f32, into ds [D][kCT], and a1 / a2
-// into av, a1 = -inf past Rt; the caller synchronizes).
-template <class Src>
+// into av, a1 = -inf past Rt; the caller synchronizes). Rows: x [rows, D]
+// f32, group, f32_rows_bytes(), init_f32(sm), begin_f32(st, gn) (a
+// group's first tile), fold_f32(acc, av, r0, gn, st, w) (a register tile) and
+// finish_f32(st) (the group's last tile).
+template <class Src, class Rows>
 __global__ void __launch_bounds__(kThreads, 1) screen_f32_kernel(
-    Src src, LatRows<float> p, Walk w) {
+    Src src, Rows p, Walk w) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sm = smem;
   float* ds = reinterpret_cast<float*>(carve(sm, (size_t)p.D * kCT * 4));
   float* xs = reinterpret_cast<float*>(carve(sm, (size_t)p.D * kLdx * 4));
   float2* av = reinterpret_cast<float2*>(carve(sm, kCT * 8));
-  float* rmax = reinterpret_cast<float*>(carve(sm, (size_t)p.group * 4));
-  float* lsum = reinterpret_cast<float*>(carve(sm, (size_t)p.NL * 4));
+  p.init_f32(sm);
   src.init(sm);
 
   Step st = w.first();
@@ -623,8 +1177,7 @@ __global__ void __launch_bounds__(kThreads, 1) screen_f32_kernel(
   while (st.b < w.B) {
     const int g0 = st.g * p.group, gn = min(p.group, p.rows - g0);
     __syncthreads();     // the source's set-up, or the last tile's readers
-    if (st.t == 0)
-      for (int r = tid; r < gn; r += kThreads) rmax[r] = -INFINITY;
+    if (st.t == 0) p.begin_f32(st, gn);
     fetch_rows(xs, p.x, g0, min(kRowTile, gn), p.D);
     src.store(in, ds, av, st, w);
     const Step nx = w.next(st);
@@ -654,24 +1207,10 @@ __global__ void __launch_bounds__(kThreads, 1) screen_f32_kernel(
           for (int j = 0; j < 8; ++j)
             acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(xr[i], dc[j]));
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float m = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 u = av[j < 4 ? tc * 4 + j : 64 + tc * 4 + j - 4];
-          m = fmaxf(m, (acc[i][j] + u.x) + u.y);
-        }
-        for (int off = 8; off > 0; off >>= 1)
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        const int r = r0 + tr * 4 + i;
-        if (tc == 0 && r < gn) rmax[r] = fmaxf(rmax[r], m);
-      }
+      p.fold_f32(acc, av, r0, gn, st, w);
       __syncthreads();   // readers of the row tile are done
     }
-    if (st.t == w.ntiles - 1)
-      finish_group<float>([&](int r) { return rmax[r]; }, rmax, lsum, st.b,
-                          st.g, p);
+    if (st.t == w.ntiles - 1) p.finish_f32(st);
     st = nx;
   }
 }
@@ -801,15 +1340,14 @@ int launch_tc(Src src, Rows rows, Walk w, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <class Src>
-int launch_f32(Src src, LatRows<float> rows, Walk w, void* stream) {
-  const size_t smem = f32_smem_bytes(rows.D, rows.group, rows.NL)
-      + src.smem_bytes();
+template <class Src, class Rows>
+int launch_f32(Src src, Rows rows, Walk w, void* stream) {
+  const size_t smem = f32_smem_bytes(rows) + src.smem_bytes();
   int grid = 0;
-  const int e = plan_grid(screen_f32_kernel<Src>, smem, w, &grid);
+  const int e = plan_grid(screen_f32_kernel<Src, Rows>, smem, w, &grid);
   if (e != (int)cudaSuccess) return e;
-  screen_f32_kernel<Src><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      src, rows, w);
+  screen_f32_kernel<Src, Rows>
+      <<<grid, kThreads, smem, (cudaStream_t)stream>>>(src, rows, w);
   return (int)cudaGetLastError();
 }
 

@@ -9,8 +9,11 @@ from one to the other. ``<wrapper>.launches`` counts kernel launches.
 The plain versions are the kernels' specification: the same arithmetic in
 the same order, so a kernel and its plain version agree bit for bit on the
 card (``chip_smoke.py`` holds them to ``KERNEL_TOL``, rtol 1e-5 /
-atol 1e-4). Four kernels run their bf16 operands on the tensor cores
-(``mma.sync``), which sum each dot in another order:
+atol 1e-4). The ADC row max with a bf16 latent side runs on the tensor
+cores (``mma.sync``) and still gives the plain version's bits: it finds
+each row's candidate columns within ``rowmax_threshold`` of its maximum
+and recomputes them in index order. Four kernels run their bf16 operands
+on the tensor cores and keep the reordered sums:
 
 - the minutiae screen with a bf16 latent side, held to ``KERNEL_TOL``;
 - the predecoded ADC screen with a bf16 latent side (bf16 or int8
@@ -55,6 +58,8 @@ give the same bits on the same entry.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -85,8 +90,11 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)
 # other, and a maximum over columns moves by no more than the largest of
 # its dots' moves. This bounds screen_t_bf16 (``screen_t_tol``); the ADC
 # screens round their row maxima to bf16 after the maximum, which
-# ``screen_slack`` bounds.
+# ``screen_slack`` bounds; the ADC row max widens it to a margin
+# (``rowmax_margin``) within which it recomputes candidates exactly.
 TC_SUM_ULPS = 4.0 * 2.0 ** -24
+# what the row max's launches ran on (``adc_rowmax_body``)
+ROWMAX_BODIES = ("tensor cores", "f32 body", "CUDA-core tiles")
 KERNELS = ("adc_rowmax", "texture_match", "minutiae_match", "minu_screen",
            "adc_screen", "adc_screen_codes", "adc_rowmax_codes",
            "minu_screen_norm", "graph_filter_packed", "graph_filter",
@@ -104,6 +112,8 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         globals()[k].launches = 0
+    for k in ("adc_rowmax", "adc_rowmax_codes"):
+        globals()[k].bodies = dict.fromkeys(ROWMAX_BODIES, 0)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
@@ -167,18 +177,105 @@ def _check_codes(codes: torch.Tensor, codebook: torch.Tensor, B: int,
 # adc_rowmax
 # ---------------------------------------------------------------------------
 
+def adc_simi_plain(x, lsq, dec, rsq, rvalid) -> torch.Tensor:
+    """simi [NL, B, Lt, Rt] = 2 x.dec + ((6 - |x|^2) - |c|^2), invalid
+    rolled columns pushed down by (v - 1) * 1e30; x and dec widened to
+    f32, each dot in index order."""
+    simi = 2.0 * seq_dots(x, dec) + ((6.0 - lsq)[:, None, :, None] - rsq[None, :, None, :])
+    return simi + (rvalid[None, :, None, :] - 1.0) * -NEG_BIG
+
+
 def adc_rowmax_plain(x, lsq, dec, rsq, rvalid) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
-    """Row max / first argmax of simi = 2 x.dec + (6 - |x|^2 - |c|^2), with
-    invalid rolled columns pushed down by (v - 1) * 1e30; x and dec widened
-    to f32."""
-    simi = 2.0 * seq_dots(x, dec) + ((6.0 - lsq)[:, None, :, None] - rsq[None, :, None, :])
-    simi = simi + (rvalid[None, :, None, :] - 1.0) * -NEG_BIG
+    """Row max / first argmax of ``adc_simi_plain``."""
+    simi = adc_simi_plain(x, lsq, dec, rsq, rvalid)
     best = simi.max(dim=-1).values
     iota = torch.arange(simi.shape[-1], device=x.device, dtype=torch.int32)
     bestj = torch.where(simi == best[..., None], iota,
                         simi.shape[-1]).min(dim=-1).values
     return best, bestj.to(torch.int32)
+
+
+def rowmax_operand_norms(x: torch.Tensor, dec: Optional[torch.Tensor] = None,
+                         codebook: Optional[torch.Tensor] = None,
+                         B: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operands' sizes that bound the row max's tensor-core sums: xl1
+    [NL, Lt] = |x_i|_1 in f32, and cmax [B] f32 >= every |c| the kernel
+    multiplies for an entry: the largest |dec| of the entry (bf16 or f32),
+    128 for an int8 gallery (its type's bound), the largest |codebook|
+    for a codes gallery (its decoded values are codebook entries). Taken
+    from the operands, not from lsq / rsq, which may carry another
+    scale (rsq of an int8 gallery is the dequantized norm)."""
+    f32 = torch.float32
+    xl1 = torch.linalg.vector_norm(x, ord=1, dim=-1, dtype=f32)
+    if codebook is not None:
+        cmax = torch.linalg.vector_norm(codebook, ord=float("inf"),
+                                        dtype=f32).expand(B).contiguous()
+    elif dec.dtype == torch.int8:
+        cmax = torch.full((dec.shape[0],), 128.0, dtype=f32,
+                          device=dec.device)
+    else:
+        cmax = torch.linalg.vector_norm(dec, ord=float("inf"), dim=(1, 2),
+                                        dtype=f32)
+    return xl1.contiguous(), cmax
+
+
+def rowmax_margin(xl1: torch.Tensor, cmax: torch.Tensor,
+                  D: int) -> torch.Tensor:
+    """e [NL, B, Lt] = (2^-21 (D + 32) xl1) cmax: how far one column's
+    value 2 dot + ((6 - lsq) - rsq) on the tensor cores may lie from the
+    plain version's, before the epilogue's roundings.
+
+    Both dots multiply the same exact products (bf16 x bf16, or int8
+    widened to bf16) and differ only in their sums: in index order within
+    (D - 1) u S of the exact dot (u = 2^-24, S = sum |x_d c_d| <= xl1
+    cmax); on the tensor cores each product's alignment to the largest term
+    loses under 2u S and each internal step (of at least four products)
+    under 4u S, so within 3 D u S; together TC_SUM_ULPS D S = 4 D u S, and
+    2 dot doubles it. The 32 covers the second-order terms, the f32
+    rounding of xl1 and the k-steps' fixed cost at small D. The card's
+    kernel computes the same product in the same order
+    (``csrc/screen_body.cuh``)."""
+    k = torch.tensor(2.0 * TC_SUM_ULPS * (D + 32), dtype=torch.float32,
+                     device=xl1.device)
+    return (k * xl1)[:, None, :] * cmax[None, :, None]
+
+
+def rowmax_threshold(t1: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """thr = t1 - 2 ((e + 2^-21 |t1|) + 2^-118), in f32 as the card's
+    kernel computes it: with t1 a row's largest value on the tensor cores
+    and e its ``rowmax_margin``, the column of the row's exact maximum has
+    a tensor-core value >= thr. Its exact value and the tensor cores'
+    maximum's each lie within e plus the epilogue's roundings (an ulp of
+    values near |t1|, under 2^-23 |t1|, or 2^-149 below 2^-126) of their
+    tensor-core values; the 2^-21 |t1| also covers this expression's own
+    roundings, and 2^-118 subnormal products the tensor cores may flush
+    (at most 96 of them, each under 2^-126)."""
+    m = (e + t1.abs() * 2.0 ** -21) + 2.0 ** -118
+    return t1 - (m + m)
+
+
+@functools.lru_cache(maxsize=256)
+def _rowmax_body(name: str, device: int, *shape) -> str:
+    """The body a row max launch of these sizes and types takes on the
+    card ``device`` (``afis_adc_rowmax_body``; fixed per shape)."""
+    with torch.cuda.device(device):
+        k = _build.load().afis_adc_rowmax_body(*shape)
+    if k < 0:
+        _build.check(-k, name)
+    return ROWMAX_BODIES[k]
+
+
+def rowmax_counts(reset: bool = False) -> dict:
+    """The card's counts over the row max's tensor-core launches since the
+    last reset: rows whose maximum was decided between two candidate
+    columns, rows sent to the exact pass over all columns (three or more
+    candidates), rows of entries with no valid column."""
+    torch.cuda.synchronize()
+    out = (ctypes.c_longlong * 3)()
+    _build.check(_build.load().afis_adc_rowmax_counts(out, int(reset)),
+                 "adc_rowmax_counts")
+    return dict(two_candidates=out[0], exact_pass=out[1], no_valid=out[2])
 
 
 def adc_rowmax(x: torch.Tensor, lsq: torch.Tensor, dec: torch.Tensor,
@@ -190,6 +287,11 @@ def adc_rowmax(x: torch.Tensor, lsq: torch.Tensor, dec: torch.Tensor,
     (x's type or int8), rsq [B, Rt], rvalid [B, Rt] f32 0/1. Returns best
     [NL, B, Lt] f32 and bestj i32 (first index on ties); rows with no valid
     rolled column come back <= -1e30.
+
+    On the card best and bestj are the plain version's bits in every mode:
+    f32 latents on the CUDA cores, bf16 latents (D <= 96) on the tensor
+    cores with an exact refine, bf16 with D > 96 on CUDA-core tiles
+    (``adc_rowmax.bodies`` counts the launches of each).
     """
     NL, Lt, D = x.shape
     B, Rt, _ = dec.shape
@@ -206,16 +308,23 @@ def adc_rowmax(x: torch.Tensor, lsq: torch.Tensor, dec: torch.Tensor,
     best = torch.empty((NL, B, Lt), dtype=f32, device=dev)
     bestj = torch.empty((NL, B, Lt), dtype=torch.int32, device=dev)
     lib = _build.load()
+    xtype, dtype = DTYPE_CODE[x.dtype], DTYPE_CODE[dec.dtype]
+    body = _rowmax_body("adc_rowmax", dev.index, NL, Lt, B, Rt, D, xtype,
+                        dtype, 0, 0)
+    norms = rowmax_operand_norms(x, dec) if body == ROWMAX_BODIES[0] \
+        else (None, None)
     err = lib.afis_adc_rowmax(
-        *(t.data_ptr() for t in (x, lsq, dec, rsq, rvalid, best, bestj)),
-        NL, Lt, B, Rt, D, DTYPE_CODE[x.dtype], DTYPE_CODE[dec.dtype],
-        _stream(dev))
+        *(0 if t is None else t.data_ptr()
+          for t in (x, lsq, dec, rsq, rvalid, best, bestj) + norms),
+        NL, Lt, B, Rt, D, xtype, dtype, _stream(dev))
     _build.check(err, "adc_rowmax")
     adc_rowmax.launches += 1
+    adc_rowmax.bodies[body] += 1
     return best, bestj
 
 
 adc_rowmax.launches = 0
+adc_rowmax.bodies = dict.fromkeys(ROWMAX_BODIES, 0)
 
 
 def adc_rowmax_codes_plain(x, lsq, codes, codebook, rsq, rvalid):
@@ -243,16 +352,24 @@ def adc_rowmax_codes(x: torch.Tensor, lsq: torch.Tensor, codes: torch.Tensor,
     best = torch.empty((NL, B, Lt), dtype=f32, device=dev)
     bestj = torch.empty((NL, B, Lt), dtype=torch.int32, device=dev)
     lib = _build.load()
+    xtype = DTYPE_CODE[x.dtype]
+    body = _rowmax_body("adc_rowmax_codes", dev.index, NL, Lt, B, Rt, D,
+                        xtype, xtype, S, C)
+    norms = rowmax_operand_norms(x, codebook=codebook, B=B) \
+        if body == ROWMAX_BODIES[0] else (None, None)
     err = lib.afis_adc_rowmax_codes(
-        *(t.data_ptr() for t in (x, lsq, codes, codebook, rsq, rvalid, best,
-                                 bestj)),
-        NL, Lt, B, Rt, S, C, sd, DTYPE_CODE[x.dtype], _stream(dev))
+        *(0 if t is None else t.data_ptr()
+          for t in (x, lsq, codes, codebook, rsq, rvalid, best, bestj)
+          + norms),
+        NL, Lt, B, Rt, S, C, sd, xtype, _stream(dev))
     _build.check(err, "adc_rowmax_codes")
     adc_rowmax_codes.launches += 1
+    adc_rowmax_codes.bodies[body] += 1
     return best, bestj
 
 
 adc_rowmax_codes.launches = 0
+adc_rowmax_codes.bodies = dict.fromkeys(ROWMAX_BODIES, 0)
 
 
 # ---------------------------------------------------------------------------
