@@ -97,7 +97,13 @@ of standard output are that record and {"ok": true, "device": {...}}; the
 kernels redesigned for Hopper in the last two slices (the predecoded ADC
 screen in every operand pair, the experiment's transposed bf16 screen; the
 ADC row max, predecoded and codes, f32 and bf16) also print their earlier
-times beside this run's. Each main path's log line says which body each
+times beside this run's. The two match kernels and the graph filters on
+the reworked filter body print their earlier times beside this run's too,
+dense, at the rerank block (1 latent x 64 entries, phase 5) and at the
+cap rerank block (phase 9), each held bit for bit; every f32 bound is
+also printed at the no-FMA ceiling (half the f32 rate: the kernels are
+built with --fmad=false), and the kernels line carries it as
+nofma_bound_ms. Each main path's log line says which body each
 row max launch took (the tensor cores, the f32 body or the CUDA-core
 tiles) and how many rows the tensor cores' exact refine decided between
 two candidates, sent to the exact pass over all columns or found without
@@ -130,6 +136,10 @@ SERVE_BENCH = dict(m=256, prescreen_k=256, prescreen_lt=64, prescreen_t=1)
 CAP = dict(Lm=128, Rm=128, Lt=1000, Rt=1000)   # matcher.h:31-32 capacities
 CAP_G = 16384
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+# every kernel is built with --fmad=false (kernels/_build.py): a product
+# and a sum are two instructions, so half the f32 rate is the ceiling of
+# the CUDA-core kernels' arithmetic
+NOFMA_F32_FLOPS = PEAK_F32_FLOPS / 2
 PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
 PEAK_INT8_OPS = 1979e12      # H100 SXM int8 tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
@@ -159,11 +169,14 @@ KERNEL_META = {
 # graph_filter launches graph_filter_packed's kernel after building the
 # cos / sin packs, as fused_graph_filter wraps the same Pallas body
 SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
-# ms per launch of the kernels redesigned for Hopper in the last two
+# ms per launch of the kernels redesigned for Hopper in the last three
 # slices, before their redesign, on their main paths' shapes (PERF.md
 # section 6: NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py): the
 # predecoded and transposed screens, then the ADC row max on the screens'
-# bodies; printed beside this run's
+# bodies, then the two match kernels on the reworked filter body (dense;
+# the rerank and cap rows: the profiler's time per launch, PERF.md
+# section 5) and the graph filters that share the body; printed beside
+# this run's
 BEFORE_MS = {"adc_screen": 46.7465,
              "adc_screen[bf16,int8]": 46.9275,
              "screen_t_bf16": 80.6312,
@@ -171,7 +184,18 @@ BEFORE_MS = {"adc_screen": 46.7465,
              "adc_rowmax[bf16,bf16]": 0.7343,
              "adc_rowmax[bf16,int8]": 0.7327,
              "adc_rowmax_codes": 0.4892,
-             "adc_rowmax_codes[bf16]": 1.2524}
+             "adc_rowmax_codes[bf16]": 1.2524,
+             "texture_match": 0.3010,
+             "minutiae_match": 1.0093,
+             "minutiae_match[bf16,bf16]": 1.0122,
+             "minutiae_match[bf16,int8]": 1.0115,
+             "minutiae_match rerank": 0.3531,
+             "texture_match rerank": 0.2875,
+             "minutiae_match[bf16,int8] cap": 0.7875,
+             "texture_match cap": 0.3094,
+             "graph_filter_packed": 4.7962,
+             "graph_filter": 4.8760,
+             "graph_filter_infuse": 4.4578}
 ROWMAX = ("adc_rowmax", "adc_rowmax_codes")
 SERVE_NORM = dict(SERVE, normalize=True)
 LARGE_PRINTS = ((128, 1000), (256, 96))   # (P, R) of the large-print block
@@ -252,10 +276,14 @@ def filter_ops(k_valid, n_stage1, dist_iters: int) -> float:
 
 def bound(ops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """The least time (ms) for ``ops`` operations at ``peak`` and ``nbytes``
-    at the memory rate, and which of the two bounds it."""
+    at the memory rate, and which of the two bounds it; for the f32 rate
+    also the same bound at the no-FMA ceiling (NOFMA_F32_FLOPS), else
+    None."""
     t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    nofma = max(ops / NOFMA_F32_FLOPS, t_bytes) * 1e3 \
+        if peak == PEAK_F32_FLOPS else None
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes", nofma)
 
 
 def peak_of(t) -> float:
@@ -453,30 +481,40 @@ def dense_records(minu, adc, tex, reps: int) -> dict:
     r["body"] = rowmax_body(lambda: ops.adc_rowmax(**adc))
     rec = {tag("adc_rowmax", adc["x"], adc["dec"]): r}
     best, bestj = ops.adc_rowmax(**adc)
+    rec.update(match_records(minu, best, bestj, tex, reps))
+    return rec
 
+
+def match_records(minu, best, bestj, tex, reps: int, suffix: str = "") -> dict:
+    """texture_match (on the row maxima best, bestj) and minutiae_match on
+    one block's inputs, each held bit for bit against its plain version,
+    keyed ``tag`` + ``suffix``. Both run on the CUDA cores in f32 (the
+    typed descriptors widen as they load), so the bound takes the f32
+    rate in every mode."""
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    rec = {}
     stats = {}
-    r = rec["texture_match"] = hold(
+    r = rec["texture_match" + suffix] = hold(
         lambda: ops.texture_match(best, bestj, **tex),
         lambda: ops.texture_match_plain(best, bestj, stats=stats, **tex),
-        None, reps)
+        None, reps, exact=True)
     r["bound"] = bound(
         30.0 * best.numel() + filter_ops(stats["k_valid"], stats["n_stage1"],
                                          tex["dist_iters"]),
         nbytes(best, bestj) + tensor_bytes(tex) + r["out_bytes"])
-
-    NT, P, _ = minu["ldes"].shape
-    R = minu["rdes"].shape[1]
-    r = rec[tag("minutiae_match", minu["ldes"], minu["rdes"])] = hold(
+    NT, P, D = minu["ldes"].shape
+    B, R, _ = minu["rdes"].shape
+    r = rec[tag("minutiae_match", minu["ldes"], minu["rdes"]) + suffix] = hold(
         lambda: ops.minutiae_match(**minu),
-        lambda: ops.minutiae_match_plain(stats=stats, **minu), None, reps)
+        lambda: ops.minutiae_match_plain(stats=stats, **minu), None, reps,
+        exact=True)
     pre_ops = NT * B * (2.0 * P * R * D + 5.0 * P * R
                         + 2.0 * minu["row_cap"] * P * R
                         + 26.0 * minu["row_cap"] * P)
     r["bound"] = bound(pre_ops + filter_ops(stats["k_valid"],
                                             stats["n_stage1"],
                                             minu["dist_iters"]),
-                       tensor_bytes(minu) + r["out_bytes"],
-                       peak_of(minu["ldes"]))
+                       tensor_bytes(minu) + r["out_bytes"])
     return rec
 
 
@@ -607,7 +645,7 @@ def filter_record(kernel, plain, args: dict, reps: int, step: int,
                      **a)
     r = hold(lambda: kernel(**args),
              by_slices(with_stats(run, sink) if full else run, kw, step, n,
-                       dims, out_dim), None, reps)
+                       dims, out_dim), None, reps, exact=True)
     n_slices = -(-n // step)
     fops = sum(filter_ops(st["k_valid"], st["n_stage1"], args["dist_iters"])
                for st in sink[:n_slices]) if full else 0.0
@@ -727,7 +765,7 @@ def large_print_records(rng, device, reps: int) -> dict:
         r = rec[f"minutiae_match {tag}"] = hold(
             lambda: ops.minutiae_match(**minu),
             lambda: ops.minutiae_match_plain(stats=stats, **minu), None,
-            reps)
+            reps, exact=True)
         pre_ops = NT * B * (2.0 * P * R * D + 5.0 * P * R + 2.0 * 8 * P * R
                             + 26.0 * 8 * P)
         r["bound"] = bound(pre_ops + filter_ops(stats["k_valid"],
@@ -776,7 +814,9 @@ def per_launch(parts) -> dict:
                 ok=all(r["ok"] for r, _ in parts), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
                 bound=(sum(r["bound"][0] * w for r, w in parts) / n,
-                       max(parts, key=lambda p: p[1])[0]["bound"][1]))
+                       max(parts, key=lambda p: p[1])[0]["bound"][1],
+                       None if parts[0][0]["bound"][2] is None else
+                       sum(r["bound"][2] * w for r, w in parts) / n))
 
 
 def chunk_shapes(engine, G: int) -> list:
@@ -1162,6 +1202,13 @@ def phase_scale(engine, cb, rng, card):
         engine.block_args(L1, codes.take(sub), 0)[1],
         engine.block_args(L1, pre.take(sub), 0)[1], reps=10)
     check_records("kernels, serving (screens per launch over one call)", rec)
+    # the match kernels on the same rerank block (1 latent x 64 entries)
+    minu1, adc1, tex1 = engine.block_args(L1, pre.take(sub), 0)
+    rr = match_records(minu1, *ops.adc_rowmax(**adc1), tex1, reps=10,
+                       suffix=" rerank")
+    check_records(f"kernels, rerank block (1 latent x {B} entries; not in "
+                  f"the kernels line: the dense path's rows are)", rr)
+    rec.update(rr)
 
     # normalize=True serving on the predecoded gallery, same prescreen
     reset_counts()
@@ -1627,14 +1674,13 @@ def phase_cap(cb, rng, card):
         rowmax_codes_record(cadc1, None, reps=5)
     check_records(f"kernels, cap serving (screens on {gal.size} entries; "
                   f"rerank 1 latent x {e.block_size} entries)", rec)
-    stats = {}
-    r = hold(lambda: ops.minutiae_match(**minu),
-             lambda: ops.minutiae_match_plain(stats=stats, **minu), None, 5)
+    ctex = e.block_args(L1, gal.take(sub), 0)[2]
+    cr = match_records(minu, *ops.adc_rowmax_codes(**cadc1), ctex, reps=5,
+                       suffix=" cap")
     check_records("kernels, cap rerank (1 latent x 64 entries; not in the "
-                  "kernels line: the 448 path holds this type pair)",
-                  {tag("minutiae_match", minu["ldes"], minu["rdes"]):
-                   dict(r, bound=(0.0, "not computed"))})
+                  "kernels line: the 448 path holds these kernels)", cr)
     launches = {name: counts[name.split("[")[0]] for name in rec}
+    rec.update(cr)
     return launches, rec
 
 
@@ -1890,7 +1936,7 @@ def main() -> int:
         rec.update(r)
 
     kernels = []
-    line = [n for n in rec if n.split("[")[0] in KERNEL_META]
+    line = [n for n in rec if n.split("[")[0] in KERNEL_META and " " not in n]
     for name in sorted(line, key=lambda n: (
             list(KERNEL_META).index(n.split("[")[0]), n)):
         src, replaces = KERNEL_META[name.split("[")[0]]
@@ -1901,17 +1947,24 @@ def main() -> int:
             replaces=replaces, launches=counts[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"]))
+            bound_by=r["bound"][1], library_ms=r["library_ms"],
+            nofma_bound_ms=r["bound"][2] if len(r["bound"]) > 2 else None))
         if name in SHARED_SOURCE:
             kernels[-1]["shares_source_with"] = SHARED_SOURCE[name]
-    for k in kernels:
-        if k["name"] in BEFORE_MS:
-            log(f"[redesigned] {k['name']}: {k['ms']:.4f} ms per launch "
-                f"(before: {BEFORE_MS[k['name']]} ms), bound "
-                f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "
-                f"{k['library_ms']} ms, plain {k['plain_ms']:.2f} ms, "
-                f"max_abs_err {k['max_abs_err']:.3e}, {k['launches']} "
-                f"launches, on {card}")
+    for name in BEFORE_MS:
+        if name not in rec:
+            raise AssertionError(f"no row for {name}")
+        r = rec[name]
+        nofma = r["bound"][2] if len(r["bound"]) > 2 else None
+        log(f"[redesigned] {name}: {r['ms']:.4f} ms per launch "
+            f"(before: {BEFORE_MS[name]} ms), bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}; at the no-FMA f32 ceiling "
+            f"{NOFMA_F32_FLOPS / 1e12:.1f} TFLOP/s: "
+            + (f"{nofma:.4f} ms" if nofma is not None else "n/a")
+            + f"), library {r['library_ms']} ms, plain "
+            f"{r['plain_ms']:.2f} ms, max_abs_err {r['max_abs_err']:.3e}, "
+            f"{counts.get(name, 'not on the kernels line')} launches, on "
+            f"{card}")
     missing = set(KERNEL_META) - {k["name"].split("[")[0] for k in kernels}
     if missing or min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"kernels line incomplete: missing {missing}, "

@@ -28,7 +28,9 @@ __global__ void __launch_bounds__(kThreads) graph_filter_kernel(
     int stage2_cap) {
   extern __shared__ uint32_t smem[];
   const int n = blockIdx.x;
-  Filter f = carve_filter(smem, K, 0);
+  Filter f = carve_filter(smem, K, 0,
+                          reinterpret_cast<float*>(smem + filter_words(K)),
+                          h1_full(K));
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     const size_t s = (size_t)n * K + k;
     const float* lp = gl + s * 4;
@@ -56,7 +58,7 @@ extern "C" int afis_graph_filter_packed(
     int lookup, int dist_iters, int stages, int stage2_cap, void* stream) {
   if (N <= 0 || K <= 0 || K > kMaxK || dist_iters < 0 || stage2_cap < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = (size_t)filter_words(K) * 4;
+  const size_t bytes = (size_t)set_words(K) * 4;
   cudaError_t e = cudaFuncSetAttribute(
       graph_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);

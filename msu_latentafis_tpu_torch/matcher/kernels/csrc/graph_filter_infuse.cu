@@ -28,7 +28,9 @@ __global__ void __launch_bounds__(kThreads) graph_filter_infuse_kernel(
   // template fastest: consecutive blocks share the entry's planes in L2
   const int t = blockIdx.x % NT, b = blockIdx.x / NT;
   const size_t set = (size_t)t * B + b;
-  Filter f = carve_filter(smem, K, 0);
+  Filter f = carve_filter(smem, K, 0,
+                          reinterpret_cast<float*>(smem + filter_words(K)),
+                          h1_full(K));
   const float* lp = lpackT + (size_t)t * 4 * P;
   const float* rp = rpackT + (size_t)b * 4 * R;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
@@ -67,7 +69,7 @@ extern "C" int afis_graph_filter_infuse(
   if (NT <= 0 || B <= 0 || K <= 0 || K > kMaxK || P <= 0 || R <= 0
       || dist_iters < 0 || (val == nullptr) == (simi == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = (size_t)filter_words(K) * 4;
+  const size_t bytes = (size_t)set_words(K) * 4;
   cudaError_t e = cudaFuncSetAttribute(
       graph_filter_infuse_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);

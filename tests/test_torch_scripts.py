@@ -296,3 +296,26 @@ def test_legality_canary_plain_copies(rng):
     assert ops.legality_canary.launches == 0
     with pytest.raises(TypeError):
         ops.legality_canary(x.double())
+
+
+def test_stage_clocks_instruments_the_kernels(tmp_path):
+    """scripts/stage_clocks.py finds every anchor in the kernels' current
+    sources: one stamp per stage of both kernels and of the filter body,
+    a block start in each kernel and both stamp readers."""
+    import re
+    from pathlib import Path
+    from msu_latentafis_tpu_torch.matcher.kernels import _build
+    from msu_latentafis_tpu_torch.scripts import stage_clocks as sc
+    sc.instrument(Path(_build.CSRC), tmp_path / "csrc")
+    stamps = {n: sorted({int(k) for k in re.findall(
+        r"STAMP\((\d+)\)", (tmp_path / "csrc" / n).read_text())})
+              for n in ("minutiae_match.cu", "texture_match.cu",
+                        "filter_body.cuh")}
+    assert stamps["minutiae_match.cu"] == list(range(6))
+    assert stamps["texture_match.cu"] == list(range(4))
+    assert stamps["filter_body.cuh"] == list(
+        range(sc.FILTER_SLOT0, sc.FILTER_SLOT0 + len(sc.FILTER_STAGES)))
+    for n, reader in sc.READERS.items():
+        text = (tmp_path / "csrc" / n).read_text()
+        assert text.count("STAMP_BEGIN();") == 1
+        assert f"STAMP_READER({reader})" in text
