@@ -13,9 +13,11 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      tolerance (rtol 1e-5 / atol 1e-4, ops.KERNEL_TOL; the ADC screens with
      a bf16 latent side, which sum on the tensor cores and round their row
      maxima to bf16, within ops.screen_slack; the ADC row max, predecoded
-     and codes, bit for bit on every body), kernel / plain / library
-     times, bound; the codes kernels must equal their predecoded twins bit
-     for bit. The normalized screen
+     and codes, bit for bit on every body; both minutiae screens with f32
+     latents bit for bit, the normalized one with bf16 latents, on the
+     tensor cores, inside ops.minu_norm_interval), kernel / plain /
+     library times, bound; the codes kernels must equal their predecoded
+     twins bit for bit. The normalized screen
      on the same block; the packed graph filter at stages 0-6 and with a
      stage2_cap below the survivor count, the xy / ori filter, and the
      infuse filter with val and with simi, on sets of that block's width;
@@ -47,8 +49,8 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      on its 16,384-entry chunks and its tail chunk with the truncated
      latents (plain versions a slice of entries at a time), the codes ADC
      row max on one latent's first rerank block. Then ``normalize=True``
-     serving on the predecoded gallery with the same prescreen, and the
-     normalized screen held and timed on that path's chunks;
+     serving on the predecoded gallery with the same prescreen, its profile,
+     and the normalized screen held and timed on that path's chunks;
   6. the standalone graph filter at the shapes of the two ported microbench
      scripts (``msu_latentafis_tpu_torch/scripts/``): the packed kernel at
      stages 0-6 over 24 x 512 sets of K 120 and 8 x 512 of K 200, the
@@ -71,7 +73,9 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      breakdown; the typed screens held per chunk, and the entries whose
      membership in the chunk's screen top-k1 and top-m sets differs between
      the kernels and the plain versions counted and printed; normalize=True
-     serving in the same mode and its screen held; then the two other typed
+     serving in the same mode with its profile, its screen held and its
+     top-k1 / top-m set differences counted the same way; then the two other
+     typed
      pairs of the predecoded screen, bf16 without tex_int8 and f32 with
      tex_int8, each serving one 16,384-entry chunk of its own gallery
      (mates at rank 1, launches counted) and held and timed on that chunk;
@@ -100,7 +104,9 @@ ADC row max, predecoded and codes, f32 and bf16) also print their earlier
 times beside this run's. The two match kernels and the graph filters on
 the reworked filter body print their earlier times beside this run's too,
 dense, at the rerank block (1 latent x 64 entries, phase 5) and at the
-cap rerank block (phase 9), each held bit for bit; every f32 bound is
+cap rerank block (phase 9), each held bit for bit; so do the two
+minutiae screens on their new body (f32 serving and f32 normalize serving
+per launch, phase 5; mode normalize serving, phase 8); every f32 bound is
 also printed at the no-FMA ceiling (half the f32 rate: the kernels are
 built with --fmad=false), and the kernels line carries it as
 nofma_bound_ms. Each main path's log line says which body each
@@ -169,14 +175,16 @@ KERNEL_META = {
 # graph_filter launches graph_filter_packed's kernel after building the
 # cos / sin packs, as fused_graph_filter wraps the same Pallas body
 SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
-# ms per launch of the kernels redesigned for Hopper in the last three
+# ms per launch of the kernels redesigned for Hopper in the last four
 # slices, before their redesign, on their main paths' shapes (PERF.md
 # section 6: NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py): the
 # predecoded and transposed screens, then the ADC row max on the screens'
 # bodies, then the two match kernels on the reworked filter body (dense;
 # the rerank and cap rows: the profiler's time per launch, PERF.md
-# section 5) and the graph filters that share the body; printed beside
-# this run's
+# section 5) and the graph filters that share the body, then the two
+# minutiae screens on their new body (f32 serving, f32 normalize serving,
+# mode normalize serving: means per launch over a call's chunks); printed
+# beside this run's
 BEFORE_MS = {"adc_screen": 46.7465,
              "adc_screen[bf16,int8]": 46.9275,
              "screen_t_bf16": 80.6312,
@@ -195,7 +203,10 @@ BEFORE_MS = {"adc_screen": 46.7465,
              "texture_match cap": 0.3094,
              "graph_filter_packed": 4.7962,
              "graph_filter": 4.8760,
-             "graph_filter_infuse": 4.4578}
+             "graph_filter_infuse": 4.4578,
+             "minu_screen": 9.1127,
+             "minu_screen_norm": 22.9750,
+             "minu_screen_norm[bf16,bf16]": 22.6230}
 ROWMAX = ("adc_rowmax", "adc_rowmax_codes")
 SERVE_NORM = dict(SERVE, normalize=True)
 LARGE_PRINTS = ((128, 1000), (256, 96))   # (P, R) of the large-print block
@@ -338,14 +349,18 @@ def tensor_bytes(args: dict) -> int:
 
 def by_entries(fn, args: dict, step: int):
     """fn(**args) computed ``step`` gallery entries at a time (every entry
-    is independent), the [.., B] outputs joined again."""
+    is independent), the [.., B] outputs (or each of a tuple's) joined
+    again."""
     import torch
     B = args["rvalid"].shape[0]
 
     def run():
-        return torch.cat([fn(**{k: v[a:a + step] if k in ENTRY_KEYS else v
-                                for k, v in args.items()})
-                          for a in range(0, B, step)], dim=-1)
+        parts = [fn(**{k: v[a:a + step] if k in ENTRY_KEYS else v
+                       for k, v in args.items()})
+                 for a in range(0, B, step)]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(p, dim=-1) for p in zip(*parts))
+        return torch.cat(parts, dim=-1)
     return run
 
 
@@ -431,14 +446,16 @@ def within(got, want, atol) -> bool:
 
 
 def hold(fn, plain, library, reps: int, twin=None, atol=None,
-         keep: bool = False, exact: bool = False) -> dict:
+         keep: bool = False, exact: bool = False, bounds=None) -> dict:
     """One kernel launch held against its plain version on the same inputs
     (first output within TOL, or within rtol and the elementwise ``atol``
     of a tensor-core screen: ops.screen_slack, ops.screen_t_tol; with
-    ``exact`` every output bit for bit; the other outputs equal) and, for a
-    codes kernel, against its predecoded twin (bit for bit); kernel, plain
-    and library times; with ``keep`` the kernel's and the plain version's
-    first outputs ("got", "want"). The caller adds the bound."""
+    ``exact`` every output bit for bit; with ``bounds`` (a function giving
+    lo, hi: ops.minu_norm_interval) inside [lo, hi]; the other outputs
+    equal) and, for a codes kernel, against its predecoded twin (bit for
+    bit); kernel, plain and library times; with ``keep`` the kernel's and
+    the plain version's first outputs ("got", "want"). The caller adds the
+    bound."""
     import torch
     got = fn()
     want = plain()
@@ -446,9 +463,15 @@ def hold(fn, plain, library, reps: int, twin=None, atol=None,
     outs = got if isinstance(got, tuple) else (got,)
     wants = want if isinstance(want, tuple) else (want,)
     tol = TOL["atol"] if atol is None else atol
-    ok = (torch.equal(outs[0], wants[0]) if exact
-          else within(outs[0], wants[0], tol)) and all(
-        torch.equal(a, b) for a, b in zip(outs[1:], wants[1:]))
+    if bounds is not None:
+        lo, hi = bounds()
+        ok = bool(((lo <= outs[0]) & (outs[0] <= hi)).all())
+        tol = float((hi - lo).max())
+    elif exact:
+        ok = torch.equal(outs[0], wants[0])
+    else:
+        ok = within(outs[0], wants[0], tol)
+    ok = ok and all(torch.equal(a, b) for a, b in zip(outs[1:], wants[1:]))
     if twin is not None:
         tw = twin()
         tw = tw if isinstance(tw, tuple) else (tw,)
@@ -458,8 +481,9 @@ def hold(fn, plain, library, reps: int, twin=None, atol=None,
              ok=bool(ok), out_bytes=nbytes(*outs), ms=cuda_ms(fn, reps),
              plain_ms=cuda_ms(plain, 1, warm=False),
              library_ms=None if library is None else cuda_ms(library, reps),
-             atol=0.0 if exact else TOL["atol"] if atol is None
-             else float(atol.max()))
+             atol=tol if bounds is not None else 0.0 if exact
+             else TOL["atol"] if atol is None else float(atol.max()),
+             interval=bounds is not None)
     if keep:
         r.update(got=outs[0], want=wants[0])
     return r
@@ -538,9 +562,9 @@ def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
     """The screen kernels on one launch's inputs (``engine.screen_args``;
     either layout may be None); plain versions and library calls ``step``
     entries at a time; adc_screen_codes equal to adc_screen bit for bit
-    when both are given; the ADC screens with a bf16 latent side (tensor
-    cores) within ops.screen_slack of their plain versions. Keyed by
-    ``tag``."""
+    when both are given; the minutiae screen with f32 latents bit for bit;
+    the ADC screens with a bf16 latent side (tensor cores) within
+    ops.screen_slack of their plain versions. Keyed by ``tag``."""
     import torch
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     rec = {}
@@ -549,7 +573,8 @@ def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
         B, R, _ = mscr["rdes"].shape
         r = hold(lambda: ops.minu_screen(**mscr),
                  by_entries(ops.minu_screen_plain, mscr, step),
-                 by_entries(minu_library, mscr, step), reps, keep=True)
+                 by_entries(minu_library, mscr, step), reps, keep=True,
+                 exact=mscr["ldes"].dtype == torch.float32)
         r["bound"] = bound(2.0 * NT * B * P * R * D,
                            tensor_bytes(mscr) + r["out_bytes"],
                            peak_of(mscr["ldes"]))
@@ -577,23 +602,25 @@ def screen_records(mscr, adc, adc_codes, step: int, reps: int) -> dict:
     return rec
 
 
-def topk_set_diffs(label: str, engine, gal, L, rows: slice, rec: dict):
+def topk_set_diffs(label: str, engine, gal, L, rows: slice, rec: dict,
+                   minu: str = "minu_screen"):
     """Logs the entries of one screen chunk whose membership in the top-k1
     (prescreen) and top-m sets of serving at SERVE_BENCH differs between
     the kernels' outputs and the plain versions', summed over the latents:
-    the screen is the minutiae screen summed over templates plus 0.3 times
-    the texture screen, empty entries -1, as the engine's _screen_all
-    combines them, cut by a stable descending sort, as the engine takes
-    its top-k. Takes the outputs that ``screen_records`` kept."""
+    the screen is the minutiae screen (``minu``: minu_screen or
+    minu_screen_norm) summed over templates plus 0.3 times the texture
+    screen, empty entries -1, as the engine's _screen_all combines them,
+    cut by a stable descending sort, as the engine takes its top-k. Takes
+    the outputs that ``screen_records`` / ``norm_record`` kept."""
     import torch
     from msu_latentafis_tpu_torch.matcher.engine import _skip_empty
     from msu_latentafis_tpu_torch.templates.data_model import \
         MatcherConstants as MC
-    minu = next(k for k in rec if k.startswith("minu_screen"))
+    minu = next(k for k in rec if k.split("[")[0] == minu)
     tex = next(k for k in rec if k.startswith("adc_screen"))
     screens = [_skip_empty(
-        rec[minu].pop(key).reshape(L["NL"], L["T"], -1).sum(dim=1)
-        + MC.TEXTURE_SCORE_WEIGHT * rec[tex].pop(key), gal, rows)
+        rec[minu][key].reshape(L["NL"], L["T"], -1).sum(dim=1)
+        + MC.TEXTURE_SCORE_WEIGHT * rec[tex][key], gal, rows)
         for key in ("got", "want")]
     B = engine.block_size
     k1 = max(B, (SERVE_BENCH["prescreen_k"] // B) * B)
@@ -604,21 +631,33 @@ def topk_set_diffs(label: str, engine, gal, L, rows: slice, rec: dict):
         top = [torch.sort(s, dim=1, descending=True, stable=True)
                .indices[:, :k].cpu().tolist() for s in screens]
         diffs.append(sum(k - len(set(a) & set(b)) for a, b in zip(*top)))
-    log(f"[{label}] screen chunk at {rows.start} ({screens[0].shape[1]} "
-        f"entries, {L['NL']} latents), kernels vs plain versions: "
-        f"{diffs[0]} entries differ in the top-{k1} (prescreen) sets, "
-        f"{diffs[1]} in the top-{m_pad} sets")
+    log(f"[{label}] {minu} screen chunk at {rows.start} "
+        f"({screens[0].shape[1]} entries, {L['NL']} latents), kernels vs "
+        f"plain versions: {diffs[0]} entries differ in the top-{k1} "
+        f"(prescreen) sets, {diffs[1]} in the top-{m_pad} sets")
 
 
-def norm_record(mscr, step: int, reps: int) -> dict:
+def drop_outputs(rec: dict) -> None:
+    """Frees the outputs that ``hold(keep=True)`` kept."""
+    for r in rec.values():
+        r.pop("got", None)
+        r.pop("want", None)
+
+
+def norm_record(mscr, step: int, reps: int, keep: bool = False) -> dict:
     """The normalized minutiae screen on one launch's inputs; plain version
-    and library call ``step`` entries at a time."""
+    and library call ``step`` entries at a time; f32 latents bit for bit,
+    bf16 latents (tensor cores) inside ops.minu_norm_interval."""
+    import torch
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     NT, P, D = mscr["ldes"].shape
     B, R, _ = mscr["rdes"].shape
+    f32 = mscr["ldes"].dtype == torch.float32
     r = hold(lambda: ops.minu_screen_norm(**mscr),
              by_entries(ops.minu_screen_norm_plain, mscr, step),
-             by_entries(norm_library, mscr, step), reps)
+             by_entries(norm_library, mscr, step), reps, keep=keep,
+             exact=f32, bounds=None if f32 else
+             by_entries(ops.minu_norm_interval, mscr, step))
     r["bound"] = bound(2.0 * NT * B * P * R * D,
                        tensor_bytes(mscr) + r["out_bytes"],
                        peak_of(mscr["ldes"]))
@@ -774,7 +813,7 @@ def large_print_records(rng, device, reps: int) -> dict:
         r = rec[f"minu_screen {tag}"] = hold(
             lambda: ops.minu_screen(**mscr),
             lambda: ops.minu_screen_plain(**mscr),
-            lambda: minu_library(**mscr), reps)
+            lambda: minu_library(**mscr), reps, exact=True)
         r["bound"] = bound(2.0 * NT * B * P * R * D,
                            tensor_bytes(mscr) + r["out_bytes"])
         rec[f"minu_screen_norm {tag}"] = norm_record(mscr, B, reps)
@@ -811,6 +850,7 @@ def per_launch(parts) -> dict:
     return dict(max_abs_err=max(r["max_abs_err"] for r, _ in parts),
                 body=parts[0][0].get("body"),
                 atol=max(r.get("atol", TOL["atol"]) for r, _ in parts),
+                interval=any(r.get("interval") for r, _ in parts),
                 ok=all(r["ok"] for r, _ in parts), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
                 bound=(sum(r["bound"][0] * w for r, w in parts) / n,
@@ -830,8 +870,9 @@ def chunk_shapes(engine, G: int) -> list:
 def check_records(label: str, rec: dict) -> None:
     for name, r in rec.items():
         atol = r.get("atol", TOL["atol"])
-        kind = "" if atol == TOL["atol"] else " (bit for bit)" if atol == 0 \
-            else " (tensor-core slack, max)"
+        kind = " (inside ops.minu_norm_interval; its widest)" \
+            if r.get("interval") else "" if atol == TOL["atol"] \
+            else " (bit for bit)" if atol == 0 else " (tensor-core slack, max)"
         log(f"[{label}] {name}: max_abs_err {r['max_abs_err']:.3e} "
             f"(tol rtol {TOL['rtol']} atol {atol:.3e}{kind}) ok={r['ok']} "
             f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.2f} "
@@ -1231,6 +1272,9 @@ def phase_scale(engine, cb, rng, card):
         f"{steady_s:.3f} s, {SERVE_LATENTS / steady_s:.2f} latents/s on "
         f"{card}; mates' ranks {mate_ranks(again[0], again[1], positions)} "
         f"(printed, not asserted); launches {counts['normalize']}; {note}")
+    profile_call("serve 100k normalize",
+                 lambda: engine.match_scores_batch_reranked(lats, pre,
+                                                            **SERVE_NORM))
     if counts["normalize"]["minu_screen_norm"] != n_launch:
         raise AssertionError(f"minu_screen_norm: "
                              f"{counts['normalize']['minu_screen_norm']} "
@@ -1533,10 +1577,9 @@ def phase_modes_serving(cb, card, lats, mates, positions):
             f"{first_s:.3f} s, steady {steady_s:.3f} s, "
             f"{len(lats) / steady_s:.2f} latents/s on {card}; launches "
             f"{counts[label]}; {note}")
+        profile_call(f"serve 100k {label}",
+                     lambda: e.match_scores_batch_reranked(lats, pre, **kw))
         if "normalize" not in kw:
-            profile_call(f"serve 100k {label}",
-                         lambda: e.match_scores_batch_reranked(lats, pre,
-                                                               **kw))
             dense = e.match_scores_batch(lats, pre).cpu()
             for i in range(len(lats)):
                 if not torch.equal(torch.as_tensor(exact[i]),
@@ -1557,9 +1600,12 @@ def phase_modes_serving(cb, card, lats, mates, positions):
         rows = slice(a, a + e.screen_chunk)
         mscr, sadc = e.screen_args(L, pre, rows)
         rec = screen_records(mscr, sadc, None, step=2048, reps=3)
-        topk_set_diffs("modes serving", e, pre, L, rows, rec)
         rec[tag("minu_screen_norm", mscr["ldes"], mscr["rdes"])] = \
-            norm_record(mscr, 2048, 3)
+            norm_record(mscr, 2048, 3, keep=True)
+        topk_set_diffs("modes serving", e, pre, L, rows, rec)
+        topk_set_diffs("modes serving normalize", e, pre, L, rows, rec,
+                       minu="minu_screen_norm")
+        drop_outputs(rec)
         check_records(f"kernels, modes serving screens ({len(lats)} latents "
                       f"x {mscr['rdes'].shape[0]} entries, x{n} per call)",
                       rec)
@@ -1667,6 +1713,7 @@ def phase_cap(cb, rng, card):
     mscr, cadc = e.screen_args(L, gal, rows)
     rec = screen_records(mscr, None, cadc, step=1024, reps=3)
     topk_set_diffs("cap", e, gal, L, rows, rec)
+    drop_outputs(rec)
     sub = torch.as_tensor(out[0][0, :e.block_size], device=e.device)
     L1 = e.latent_side({k: v[:1] for k, v in lat.items()}, gal)
     minu, cadc1, _ = e.block_args(L1, gal.take(sub), 0)
@@ -1858,9 +1905,9 @@ def main() -> int:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:                    # mangled: <name>_kernel[I<types>...]
             sym = m.group(1)
-            k = re.search(r"(minu_screen_tc|screen_tc|screen_f32|adc_rowmax|"
-                          r"adc_screen|"
-                          r"minu_screen_norm|"
+            k = re.search(r"(minu_screen_norm_tc|minu_screen_tc|screen_tc|"
+                          r"screen_f32|adc_rowmax|adc_screen|"
+                          r"minu_screen_norm|afis_minu13screen|"
                           r"minu_screen|minutiae_match|texture_match|"
                           r"graph_filter_infuse|graph_filter|screen_t_bf16|"
                           r"screen_t_int8|h1_probe|canary_copy)_kernel",

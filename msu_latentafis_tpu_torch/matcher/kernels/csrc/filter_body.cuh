@@ -45,7 +45,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ordered_sum.cuh"
+
 namespace afis {
+
+using afis_sum::ordered_sum;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -344,24 +348,6 @@ __device__ __forceinline__ float h1_at(const Filter& f, int i, int j) {
   if (f.h1_full) return f.h1[i * (K | 1) + j];
   const float h = f.h1[i == j ? 0 : h1_index(K, h1_stride(K), i, j)];
   return i == j ? 0.f : h;
-}
-
-// acc0 + v(0) + ... + v(n - 1) in index order, one rounding per term; the
-// terms are fetched eight at a time ahead of the dependent adds.
-template <class V>
-__device__ __forceinline__ float ordered_sum(int n, const V& v,
-                                             float acc0 = 0.f) {
-  float acc = acc0;
-  int i = 0;
-  for (; i + 8 <= n; i += 8) {
-    float x[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) x[u] = v(i + u);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) acc = acc + x[u];
-  }
-  for (; i < n; ++i) acc = acc + v(i);
-  return acc;
 }
 
 // Every H1 entry once: row i, column d - 1 holds H1(i, i + d mod K) (in

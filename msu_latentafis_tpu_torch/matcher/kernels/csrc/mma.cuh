@@ -1,5 +1,6 @@
 // Tensor-core pieces of the bf16 screens (screen_body.cuh: the ADC screens
-// and the transposed screen; minu_screen.cu): mma.sync.m16n8k16 bf16 x
+// and the transposed screen; minu_body.cuh: the minutiae screens), and the
+// cp.async copies both bodies stage with: mma.sync.m16n8k16 bf16 x
 // bf16 -> f32 and ldmatrix, with
 // the fragment layouts of the PTX ISA (lane = 4 g + c, g = lane / 4,
 // c = lane % 4):
@@ -24,6 +25,29 @@ constexpr int kMaxKSteps = 6;   // D <= 96 (the matcher's descriptors)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 (bypassing L1), 8 or 4 bytes into shared memory.
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const uint32_t d = smem_addr(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // d += a b for one 16 x 8 x 16 tile (no side effects: not volatile, so

@@ -75,32 +75,6 @@ __device__ __forceinline__ unsigned char* carve(unsigned char*& sm,
   return p;
 }
 
-// ---------------------------------------------------------------------------
-// cp.async
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes) {
-  const uint32_t d = smem_addr(dst);
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src) : "memory");
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-                 "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most N of this thread's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Eight consecutive values of a row, widened to f32: one 16-byte (bf16,
 // two for f32) or 8-byte (int8) load where p is aligned to it, else eight.
 template <class T>

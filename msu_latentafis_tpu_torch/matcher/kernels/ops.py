@@ -12,8 +12,7 @@ card (``chip_smoke.py`` holds them to ``KERNEL_TOL``, rtol 1e-5 /
 atol 1e-4). The ADC row max with a bf16 latent side runs on the tensor
 cores (``mma.sync``) and still gives the plain version's bits: it finds
 each row's candidate columns within ``rowmax_threshold`` of its maximum
-and recomputes them in index order. Four kernels run their bf16 operands
-on the tensor cores and keep the reordered sums:
+and recomputes them in index order. These keep the reordered sums:
 
 - the minutiae screen with a bf16 latent side, held to ``KERNEL_TOL``;
 - the predecoded ADC screen with a bf16 latent side (bf16 or int8
@@ -21,7 +20,12 @@ on the tensor cores and keep the reordered sums:
   (``csrc/screen_body.cuh``): their row maxima round to bf16 and may land
   one bf16 ulp apart, held to ``screen_slack``; on the same entry the two
   give the same bits;
-- the experiment's transposed bf16 screen, held to ``screen_t_tol``.
+- the experiment's transposed bf16 screen, held to ``screen_t_tol``;
+- the normalized minutiae screen with a bf16 latent side, held to
+  ``minu_norm_interval``: its normalization divides by sums that may be
+  near 1e-6, so a reordered dot can move it far past ``KERNEL_TOL``.
+
+With f32 latents both minutiae screens give the plain bits.
 
 Modes: the descriptor operands come in the types the JAX engine gives its
 kernels: the latent side f32 or bf16 (the compute dtype, any int8 scale
@@ -60,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -91,7 +96,9 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)
 # its dots' moves. This bounds screen_t_bf16 (``screen_t_tol``); the ADC
 # screens round their row maxima to bf16 after the maximum, which
 # ``screen_slack`` bounds; the ADC row max widens it to a margin
-# (``rowmax_margin``) within which it recomputes candidates exactly.
+# (``rowmax_margin``) within which it recomputes candidates exactly; the
+# normalized minutiae screen carries it through its f32 steps
+# (``minu_norm_interval``).
 TC_SUM_ULPS = 4.0 * 2.0 ** -24
 # what the row max's launches ran on (``adc_rowmax_body``)
 ROWMAX_BODIES = ("tensor cores", "f32 body", "CUDA-core tiles")
@@ -613,7 +620,9 @@ def minu_screen_norm(ldes: torch.Tensor, lvalid: torch.Tensor,
     """Mutually normalized minutiae screen [NT, B] (``fused_minu_screen``
     with normalize=True): the quantity the top-120 selection ranks by, a
     correlation heuristic and not a bound on the exact score. Shapes as
-    ``minu_screen``."""
+    ``minu_screen``. With bf16 ldes (D <= 96, R <= 128) the card's kernel
+    runs the dots on the tensor cores and the rest in the plain version's
+    order, within ``minu_norm_interval``; else it gives the plain bits."""
     NT, P, D, B, R, dev = _minu_screen_args(ldes, lvalid, rdes, rvalid)
     if not _is_cuda(dev):
         return minu_screen_norm_plain(ldes, lvalid, rdes, rvalid)
@@ -1065,6 +1074,68 @@ def screen_t_tol(xt, dect, step: int = 256) -> torch.Tensor:
     s = torch.cat([torch.matmul(dect[a:a + step].float().abs(), ax)
                    .amax(dim=1) for a in range(0, dect.shape[0], step)])
     return KERNEL_TOL["atol"] + TC_SUM_ULPS * Da * s
+
+
+def _f32_outward(x: torch.Tensor, down: bool) -> torch.Tensor:
+    """f64 x rounded to f32 toward -inf (down) or +inf."""
+    y = x.float()
+    off = y.double() > x if down else y.double() < x
+    return torch.where(off, torch.nextafter(
+        y, torch.full_like(y, -math.inf if down else math.inf)), y)
+
+
+def minu_norm_interval(ldes, lvalid, rdes, rvalid):
+    """(lo, hi) [NT, B] f32: where ``minu_screen_norm`` may land when the
+    card sums its dots on the tensor cores (bf16 ldes), around the plain
+    version. Validity >= 0.
+
+    A dot summed in the tensor cores' order lies within e = ``TC_SUM_ULPS``
+    D sum_d |l_d r_d| of the index-order dot d (``seq_dots``), so in
+    [d - e, d + e], taken in f64 (e raised by 2^-30 of itself for the f64
+    roundings) and rounded outward to f32. Every later step is the plain
+    version's f32 arithmetic, which the kernel repeats, and each step is
+    monotone under rounding to nearest: s = (relu(dot) * lv) * rv is
+    non-decreasing in the dot; an index-order sum in each term; n = ((s /
+    (((row + col) - s) + 1e-6)) * lv) * rv is non-decreasing in s and
+    non-increasing in row and col while the denominator is positive;
+    maxima, sums and the min are non-decreasing. So these steps on the ends
+    of the intervals bound the card's values with every rounding in them,
+    the division's included, and nothing taken to first order:
+
+    - s in [s_lo, s_hi]: the steps on d - e and d + e;
+    - row in [row_lo, row_hi], col in [col_lo, col_hi]: the index-order
+      sums of s_lo and of s_hi;
+    - n >= n_lo = n(s_lo, row_hi, col_hi): the card's row and column hold
+      its s and terms >= 0, so row >= s, col >= s, and the denominator is
+      positive at every point used;
+    - n <= n_hi = min(n(s_hi, max(row_lo, s_lo), max(col_lo, s_lo)),
+      fl(lv * rv)) where that denominator is positive, else fl(lv * rv):
+      row >= s gives ((row + col) - s) >= s and s / (that + 1e-6) <= 1, the
+      cap; the first term bounds it where a denominator near 1e-6, which a
+      first-order bound gets wrong, stays positive;
+    - lo, hi: the maxima, index-order sums and min of n_lo and n_hi.
+    """
+    lv = lvalid[:, None, :, None]
+    rv = rvalid[None, :, None, :]
+    d = seq_dots(ldes, rdes).double()
+    mag = torch.matmul(ldes.double().abs()[:, None],
+                       rdes.double().abs().transpose(1, 2)[None])
+    e = TC_SUM_ULPS * ldes.shape[-1] * mag * (1.0 + 2.0 ** -30)
+    s_lo, s_hi = ((torch.clamp(_f32_outward(dot, down), min=0.0) * lv) * rv
+                  for dot, down in ((d - e, True), (d + e, False)))
+    row_lo, row_hi = (seq_sum(s, dim=-1)[..., :, None] for s in (s_lo, s_hi))
+    col_lo, col_hi = (seq_sum(s, dim=-2)[..., None, :] for s in (s_lo, s_hi))
+    n_lo = ((s_lo / (((row_hi + col_hi) - s_lo) + 1e-6)) * lv) * rv
+    den = ((torch.maximum(row_lo, s_lo) + torch.maximum(col_lo, s_lo))
+           - s_hi) + 1e-6
+    cap = (lv * rv).expand_as(s_hi)
+    n_hi = torch.where(den > 0, torch.minimum(((s_hi / den) * lv) * rv, cap),
+                       cap)
+
+    def reduce(n):
+        return torch.minimum(seq_sum(n.max(dim=-1).values, dim=-1),
+                             seq_sum(n.max(dim=-2).values, dim=-1))
+    return reduce(n_lo), reduce(n_hi)
 
 
 def screen_t_bf16(xt: torch.Tensor, dect: torch.Tensor,

@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Where one block of minutiae_match / texture_match spends its cycles.
+"""Where one block of the match kernels and the minutiae screens spends
+its cycles.
 
     python -m msu_latentafis_tpu_torch.scripts.stage_clocks
 
@@ -10,7 +11,10 @@ the stamps add a barrier per stage and little else), builds that copy and
 runs it at the shapes the main paths launch: the dense block (4 latents x
 3 templates x 64 entries at the 448 shape, with and without a mate), the
 rerank block (1 latent x 64 entries), the cap rerank block (P = R = 128,
-Lt = Rt = 1000) and a 1,000-minutiae print (the workspace). Per launch one
+Lt = Rt = 1000) and a 1,000-minutiae print (the workspace); then the two
+minutiae screens at the serving chunk's shape (8 templates of P 64
+against 16,384 entries of R 96): the fast path (f32) and the normalized
+screen (f32 on the CUDA cores, bf16 on the tensor cores). Per launch one
 JSON line: CUDA-event ms per launch of the stamped kernel, the blocks, the
 per-block wall time (globaltimer) min / mean / max, and per stage the
 cycles of block 0, the mean over blocks and the slowest block's. The
@@ -20,7 +24,14 @@ The stages: minutiae_match sim (descriptor tiles and similarity), sums,
 norm+extract, bisect, ranks (slot scans and band ranks), slots (fill and
 gather); texture_match load (row maxima, window, n_valid), bisect, ranks,
 slots; then the filter body's H1 (table build), power1, greedy1 (with the
-blockers), compact, H2, power2, greedy2, total. Each stamp goes before or
+blockers), compact, H2, power2, greedy2, total. The screens' CUDA-core
+body (minu_body.cuh), per stage of its walk: stage (waiting for the
+stage's copies, widening them), epilogue (the previous stage's maxima and
+sums), dots (the products, and for the normalized screen their s tiles),
+sums and normalize (the normalized screen); the tensor-core normalized
+screen: stage (the entry into shared memory), then warp 0's template: s
+(the products), sums, normalize (with the maxima), final (the two sums).
+Each stamp goes before or
 after an anchor, a line of the sources that occurs once
 (tests/test_torch_scripts.py checks that every anchor is found).
 """
@@ -38,7 +49,15 @@ STAGES = {
     "minutiae_match": ["sim", "sums", "norm+extract", "bisect", "ranks",
                        "slots"],
     "texture_match": ["load", "bisect", "ranks", "slots"],
+    "minu_screen": ["stage", "epilogue", "dots"],
+    "minu_screen_norm": ["stage", "epilogue", "dots", "sums", "normalize"],
+    "minu_screen_norm_tc": ["stage", "s", "sums", "normalize", "final"],
 }
+# kernel -> the stamp reader of its source (READERS)
+READER_OF = {"minutiae_match": "stage_minu", "texture_match": "stage_tex",
+             "minu_screen": "stage_screen",
+             "minu_screen_norm": "stage_norm",
+             "minu_screen_norm_tc": "stage_norm"}
 FILTER_STAGES = ["H1", "power1", "greedy1", "compact", "H2", "power2",
                  "greedy2", "total"]
 FILTER_SLOT0 = 8                 # filter stages take slots 8 .. 15
@@ -61,6 +80,12 @@ __device__ __forceinline__ long long stamp_gtimer() {
     if (g_st[blockIdx.x * NSLOT + 28] == 0) \
       g_st[blockIdx.x * NSLOT + 28] = stamp_gtimer(); } } while (0)
 #define STAMP(i) do { __syncthreads(); \
+  if (threadIdx.x == 0 && blockIdx.x < MAXB) { \
+    const long long t_ = clock64(); \
+    g_st[blockIdx.x * NSLOT + (i)] += t_ - g_prev[blockIdx.x]; \
+    g_prev[blockIdx.x] = t_; \
+    g_st[blockIdx.x * NSLOT + 29] = stamp_gtimer(); } } while (0)
+#define WSTAMP(i) do { __syncwarp(); \
   if (threadIdx.x == 0 && blockIdx.x < MAXB) { \
     const long long t_ = clock64(); \
     g_st[blockIdx.x * NSLOT + (i)] += t_ - g_prev[blockIdx.x]; \
@@ -119,8 +144,37 @@ PATCHES = [
      "[&](int m) { return f.b[m]; });\n", f"  {_st('power2')}\n", ""),
     ("filter_body.cuh", "        || !bit_of(f.h2 + a * W2, b);\n  });\n",
      "", f"  {_st('greedy2')}\n"),
+    ("minu_body.cuh", "#include <stdint.h>\n", "", '#include "stamp.cuh"\n'),
+    ("minu_body.cuh", "  if (pl.pieces == 1) stage_templates(0);\n", "",
+     "  STAMP_BEGIN();\n"),
+    ("minu_body.cuh", "    convert(k, st);\n    __syncthreads();\n", "",
+     "    STAMP(0);\n"),
+    ("minu_body.cuh", "      if (folds(prev)) epilogue(k - 1, prev, warp);\n"
+     "    }\n", "", "    STAMP(1);\n"),
+    ("minu_body.cuh", "      continue;\n    }\n    // whether every division",
+     "      STAMP(2);\n", ""),
+    ("minu_body.cuh", "      const int nrow = tg * st.rows, ncol = tg * "
+     "st.nc;\n", "      STAMP(2);\n", ""),
+    ("minu_body.cuh", "      if (two_pass) continue;\n", "      STAMP(3);\n",
+     ""),
+    ("minu_body.cuh", "  }\n  __syncthreads();\n  if (warp < tg) {\n    const"
+     " Stage last", "    STAMP(4);\n", ""),
+    ("minu_screen_norm.cu", "  int b = blockIdx.x;\n  if (b < B) fetch(b);\n",
+     "", "  STAMP_BEGIN();\n"),
+    ("minu_screen_norm.cu", "    if (b + (int)gridDim.x < B) fetch(b + "
+     "gridDim.x);\n", "    STAMP(0);\n", ""),
+    ("minu_screen_norm.cu", "    // row sums (rows lane + 32 q",
+     "    WSTAMP(1);\n", ""),
+    ("minu_screen_norm.cu", "    // normalize in place, two rows at a time",
+     "    WSTAMP(2);\n", ""),
+    ("minu_screen_norm.cu", "    // the column maxima over row 0 of sw",
+     "    WSTAMP(3);\n", ""),
+    ("minu_screen_norm.cu", "    if (lane == 0) out[(size_t)t * B + b] = "
+     "fminf(v, cols_side);\n", "", "    WSTAMP(4);\n"),
 ]
-READERS = {"minutiae_match.cu": "stage_minu", "texture_match.cu": "stage_tex"}
+READERS = {"minutiae_match.cu": "stage_minu", "texture_match.cu": "stage_tex",
+           "minu_screen.cu": "stage_screen",
+           "minu_screen_norm.cu": "stage_norm"}
 TOTAL = ("  return seq_total(f, nc, [&](int m) {\n"
          "    return bit_of(f.sel, m) ? f.val[f.cidx[m]] : 0.f; });\n}")
 
@@ -133,7 +187,8 @@ def instrument(src: Path, dst: Path) -> None:
     (dst / "stamp.cuh").write_text(STAMP_CUH)
     texts = {n: (dst / n).read_text()
              for n in ("filter_body.cuh", "minutiae_match.cu",
-                       "texture_match.cu")}
+                       "texture_match.cu", "minu_body.cuh",
+                       "minu_screen.cu", "minu_screen_norm.cu")}
     for name, anchor, before, after in PATCHES:
         s = texts[name]
         if s.count(anchor) != 1:
@@ -165,12 +220,13 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
-def clocks(lib, kernel: str, fn, label: str, blocks: int, emit) -> dict:
-    """One launch of ``fn`` stamped, its slots read back and summarized."""
+def clocks(lib, kernel: str, fn, label: str, blocks, emit) -> dict:
+    """One launch of ``fn`` stamped, its slots read back and summarized
+    (``blocks`` None: every block that stamped its start)."""
     import numpy as np
     import torch
     ms = cuda_ms(fn)
-    reader = "stage_minu" if kernel == "minutiae_match" else "stage_tex"
+    reader = READER_OF[kernel]
     read, reset = getattr(lib, reader + "_read"), getattr(lib, reader + "_reset")
     read.argtypes = [ctypes.c_void_p]
     buf = (ctypes.c_longlong * (MAXB * NSLOT))()
@@ -181,10 +237,13 @@ def clocks(lib, kernel: str, fn, label: str, blocks: int, emit) -> dict:
     torch.cuda.synchronize()
     if read(ctypes.addressof(buf)) != 0:
         raise RuntimeError("stamp read failed")
-    a = np.frombuffer(buf, dtype=np.int64).reshape(MAXB, NSLOT)[:blocks]
+    a = np.frombuffer(buf, dtype=np.int64).reshape(MAXB, NSLOT)
+    a = a[:blocks] if blocks is not None else a[a[:, 28] != 0]
+    blocks = len(a)
     wall = (a[:, 29] - a[:, 28]) / 1e3
-    names = STAGES[kernel] + [""] * (FILTER_SLOT0 - len(STAGES[kernel])) \
-        + FILTER_STAGES
+    names = STAGES[kernel]
+    if kernel in ("minutiae_match", "texture_match"):
+        names = names + [""] * (FILTER_SLOT0 - len(names)) + FILTER_STAGES
     st = a[:, :len(names)].astype(np.float64)
     slow = int(np.argmax(st.sum(1)))
     rec = {"label": label, "ms": round(ms, 4), "blocks": blocks,
@@ -279,6 +338,24 @@ def _run(lib, emit):
                    best.shape[0] * best.shape[1], emit)
         del gal
         torch.cuda.empty_cache()
+    # the minutiae screens at a serving chunk (8 templates x 16,384
+    # entries, P 64, R 96, D 96)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    NT, P, B, R, D = 8, 64, 16384, 96, 96
+    ld = torch.nn.functional.normalize(
+        torch.randn(NT, P, D, device="cuda", generator=g), dim=-1)
+    rd = torch.nn.functional.normalize(
+        torch.randn(B, R, D, device="cuda", generator=g), dim=-1)
+    lv = (torch.rand(NT, P, device="cuda", generator=g) > 0.1).float()
+    rv = (torch.rand(B, R, device="cuda", generator=g) > 0.1).float()
+    for kernel, fn, dt in (
+            ("minu_screen", ops.minu_screen, torch.float32),
+            ("minu_screen_norm", ops.minu_screen_norm, torch.float32),
+            ("minu_screen_norm_tc", ops.minu_screen_norm, torch.bfloat16)):
+        a, b = ld.to(dt), rd.to(dt)
+        clocks(lib, kernel, lambda: fn(a, lv, b, rv),
+               f"{kernel} serving chunk {NT}x{B} (P {P}, R {R})", None, emit)
 
 
 def main():

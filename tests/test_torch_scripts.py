@@ -300,8 +300,9 @@ def test_legality_canary_plain_copies(rng):
 
 def test_stage_clocks_instruments_the_kernels(tmp_path):
     """scripts/stage_clocks.py finds every anchor in the kernels' current
-    sources: one stamp per stage of both kernels and of the filter body,
-    a block start in each kernel and both stamp readers."""
+    sources: one stamp per stage of both match kernels, of the filter body,
+    of the minutiae screens' body and of the tensor-core normalized
+    screen, a block start in each kernel and every stamp reader."""
     import re
     from pathlib import Path
     from msu_latentafis_tpu_torch.matcher.kernels import _build
@@ -315,7 +316,16 @@ def test_stage_clocks_instruments_the_kernels(tmp_path):
     assert stamps["texture_match.cu"] == list(range(4))
     assert stamps["filter_body.cuh"] == list(
         range(sc.FILTER_SLOT0, sc.FILTER_SLOT0 + len(sc.FILTER_STAGES)))
+    body = (tmp_path / "csrc" / "minu_body.cuh").read_text()
+    assert sorted({int(k) for k in re.findall(r"STAMP\((\d+)\)", body)}) \
+        == list(range(len(sc.STAGES["minu_screen_norm"])))
+    tc = (tmp_path / "csrc" / "minu_screen_norm.cu").read_text()
+    assert sorted({int(k) for k in re.findall(r"WSTAMP\((\d+)\)", tc)}) \
+        == list(range(1, len(sc.STAGES["minu_screen_norm_tc"])))
     for n, reader in sc.READERS.items():
         text = (tmp_path / "csrc" / n).read_text()
-        assert text.count("STAMP_BEGIN();") == 1
+        begins = text.count("STAMP_BEGIN();")
+        if n.startswith("minu_screen"):      # the body's start, included
+            begins += body.count("STAMP_BEGIN();")
+        assert begins == (2 if n == "minu_screen_norm.cu" else 1)
         assert f"STAMP_READER({reader})" in text

@@ -20,6 +20,13 @@ the reference cap's shapes:
   the f32 roundings alone, within ops.screen_t_tol; a crafted dot with
   cancellation moves by 2^-8, past KERNEL_TOL.
 
+- the normalized minutiae screen divides by row and column sums that may
+  be near 1e-6, so a reordered dot can move it by far more than
+  KERNEL_TOL: a crafted tiny dot moves it by ~0.5; ops.minu_norm_interval
+  carries the reordered dot through the screen's f32 steps and holds it,
+  at the prescreen and cap shapes, with bf16 and int8 galleries and with
+  validity weights other than 0 and 1.
+
 Then the plain versions against the Pallas kernels in interpret mode where
 no other test holds them: the minutiae screen [bf16, int8] at R = 128 and
 the bf16 codes screen at the descriptors' D = 96 with Rt = 100, not a
@@ -32,6 +39,7 @@ import torch
 
 from msu_latentafis_tpu.matcher import pallas_kernels as pk
 from msu_latentafis_tpu.matcher.texture_match import block_diag_codebook
+from msu_latentafis_tpu_torch.matcher.graph_filter import seq_dots as seq_dots_plain
 from msu_latentafis_tpu_torch.matcher.graph_filter import seq_sum
 from msu_latentafis_tpu_torch.matcher.kernels import ops
 from msu_latentafis_tpu_torch.utils.synthetic import random_codebook
@@ -95,6 +103,18 @@ def minu_screen_in(dots, ldes, lvalid, rdes, rvalid):
     rb = seq_sum(torch.clamp(s.max(dim=-1).values, min=0.0), dim=-1)
     cb = seq_sum(torch.clamp(s.max(dim=-2).values, min=0.0), dim=-1)
     return torch.minimum(rb, cb)
+
+
+def minu_norm_in(dots, ldes, lvalid, rdes, rvalid):
+    """ops.minu_screen_norm_plain with the dots summed by ``dots``."""
+    lv = lvalid[:, None, :, None]
+    rv = rvalid[None, :, None, :]
+    s = (torch.clamp(dots(ldes, rdes), min=0.0) * lv) * rv
+    row = seq_sum(s, dim=-1)[..., :, None]
+    col = seq_sum(s, dim=-2)[..., None, :]
+    n = ((s / (((row + col) - s) + 1e-6)) * lv) * rv
+    return torch.minimum(seq_sum(n.max(dim=-1).values, dim=-1),
+                         seq_sum(n.max(dim=-2).values, dim=-1))
 
 
 def within(got, want, atol):
@@ -269,6 +289,91 @@ def test_minu_screen_reordered_within_tol(order, gallery):
     got = minu_screen_in(ORDERS[order], ldes, lval, rdes, rval)
     assert float(plain[0, 0]) > 10.0          # the mated pair
     assert within(got, plain, TOL["atol"])
+
+
+def _minu_norm_case(rng, NT, P, B, R, gallery, weights=(0.0, 1.0)):
+    """bf16 unit latent rows against a bf16 gallery, or an int8 one with
+    its scale folded into the latent side; entry 0 holds a mate of
+    template 0's first rows; validity drawn from ``weights``."""
+    ld = rng.standard_normal((NT, P, 96)).astype(np.float32)
+    rd = rng.standard_normal((B, R, 96)).astype(np.float32)
+    n = min(P, R) // 2
+    rd[0, :n] = ld[0, :n] + 0.2 * rng.standard_normal((n, 96))
+    ld /= np.linalg.norm(ld, axis=-1, keepdims=True)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    if gallery == "int8":
+        scale = float(np.abs(rd).max()) / 127.0
+        rdes = torch.as_tensor(np.clip(np.round(rd / scale), -127, 127)
+                               .astype(np.int8))
+        ld = ld * np.float32(scale)
+    else:
+        rdes = torch.as_tensor(rd).to(BF16)
+    w = np.asarray(weights, np.float32)
+    return (torch.as_tensor(ld).to(BF16),
+            torch.as_tensor(rng.choice(w, (NT, P), p=None)),
+            rdes, torch.as_tensor(rng.choice(w, (B, R))))
+
+
+@pytest.mark.parametrize("order", list(ORDERS))
+@pytest.mark.parametrize("gallery", ["bf16", "int8"])
+@pytest.mark.parametrize("shape", [(8, 64, 2, 96), (4, 128, 2, 128)])
+def test_minu_norm_reordered_within_interval(order, gallery, shape):
+    """The normalized screen [bf16, bf16] and [bf16, int8] at the serving
+    prescreen's shape (NT 8, P 64, R 96) and the cap's (P = R = 128), its
+    dots in another order: inside ops.minu_norm_interval, which holds the
+    plain version too."""
+    NT, P, B, R = shape
+    rng = np.random.default_rng(P + R + len(gallery))
+    args = _minu_norm_case(rng, NT, P, B, R, gallery, weights=(0.0, 1.0,
+                                                               1.0, 1.0))
+    lo, hi = ops.minu_norm_interval(*args)
+    plain = ops.minu_screen_norm_plain(*args)
+    got = minu_norm_in(ORDERS[order], *args)
+    assert float(plain[0, 0]) > float(plain[1:, 0].max())   # the mate
+    assert bool((lo <= plain).all() and (plain <= hi).all())
+    assert bool((lo <= got).all() and (got <= hi).all())
+
+
+@pytest.mark.parametrize("order", list(ORDERS))
+def test_minu_norm_weighted_validity_within_interval(order):
+    """Validity weights other than 0 and 1 (0.25, 0.5, 0.8) at the
+    prescreen shape: the reordered screen inside the interval."""
+    rng = np.random.default_rng(17)
+    args = _minu_norm_case(rng, 8, 64, 2, 96, "bf16",
+                           weights=(0.0, 0.25, 0.5, 0.8, 1.0))
+    assert not set(args[1].unique().tolist()) <= {0.0, 1.0}
+    lo, hi = ops.minu_norm_interval(*args)
+    got = minu_norm_in(ORDERS[order], *args)
+    assert bool((lo <= got).all() and (got <= hi).all())
+
+
+@pytest.mark.parametrize("order", list(ORDERS))
+def test_minu_norm_tiny_dot_breaks_kernel_tol(order):
+    """One crafted row: its only positive dot is 2^-20 in index order (64 x
+    64, fifteen 2^-6 x 2^-6 lost against 4096, 64 x -64, then 2^-10 x
+    2^-10), so row = col = 2^-20 and the denominator ~2e-6: n = 0.488.
+    Reversed, or summed as k-steps, the small products survive (15 2^-12,
+    7 2^-11) and n ~ 0.9997. The screen moves by ~0.51, past KERNEL_TOL,
+    and stays inside ops.minu_norm_interval (whose upper end there is the
+    cap, 1)."""
+    x = np.zeros((1, 2, 32), np.float32)
+    y = np.zeros((1, 2, 32), np.float32)
+    x[0, 0, 0], y[0, 0, 0] = 64.0, 64.0
+    x[0, 0, 1:16], y[0, 0, 1:16] = 2 ** -6, 2 ** -6
+    x[0, 0, 16], y[0, 0, 16] = 64.0, -64.0
+    x[0, 0, 17], y[0, 0, 17] = 2 ** -10, 2 ** -10
+    x[0, 1, 20], y[0, 1, 20] = -1.0, 1.0       # row 1: dots <= 0
+    args = (torch.as_tensor(x).to(BF16), torch.ones(1, 2),
+            torch.as_tensor(y).to(BF16), torch.ones(1, 2))
+    assert float(seq_dots_plain(args[0], args[2])[0, 0, 0, 0]) == 2 ** -20
+    plain = ops.minu_screen_norm_plain(*args)
+    got = minu_norm_in(ORDERS[order], *args)
+    assert abs(float(plain) - 2 ** -20 / (2 ** -20 + 1e-6)) < 1e-3
+    assert float(got) > 0.999
+    assert not within(got, plain, TOL["atol"])
+    lo, hi = ops.minu_norm_interval(*args)
+    assert float(lo) <= float(got) <= float(hi) == 1.0
+    assert float(lo) <= float(plain)
 
 
 def test_minu_screen_bf16_int8_at_r128_matches_pallas():
