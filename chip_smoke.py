@@ -90,7 +90,11 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      variants (matmul must equal bcast), the launch-legality canary (a
      legal plan copies, a plan above the card's shared memory or thread
      limit must raise); each kernel held against its plain version
-     (screen_t_bf16, on the tensor cores, within ops.screen_t_tol).
+     (screen_t_bf16, on the tensor cores, within ops.screen_t_tol;
+     screen_t_int8, on the tensor cores, bit for bit); the canary's grid
+     at its timed plan (from the profiler's trace), and the canary,
+     copy_ and clone profiled (host time per call beside device time per
+     launch).
 The kernels' JSON record takes each kernel's launches from the path that
 runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 6) and its numbers from the same path's shapes and data: means per launch
@@ -175,7 +179,7 @@ KERNEL_META = {
 # graph_filter launches graph_filter_packed's kernel after building the
 # cos / sin packs, as fused_graph_filter wraps the same Pallas body
 SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
-# ms per launch of the kernels redesigned for Hopper in the last four
+# ms per launch of the kernels redesigned for Hopper in the last five
 # slices, before their redesign, on their main paths' shapes (PERF.md
 # section 6: NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py): the
 # predecoded and transposed screens, then the ADC row max on the screens'
@@ -183,8 +187,9 @@ SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
 # the rerank and cap rows: the profiler's time per launch, PERF.md
 # section 5) and the graph filters that share the body, then the two
 # minutiae screens on their new body (f32 serving, f32 normalize serving,
-# mode normalize serving: means per launch over a call's chunks); printed
-# beside this run's
+# mode normalize serving: means per launch over a call's chunks), then the
+# transposed int8 screen and the launch canary (phase 10); printed beside
+# this run's
 BEFORE_MS = {"adc_screen": 46.7465,
              "adc_screen[bf16,int8]": 46.9275,
              "screen_t_bf16": 80.6312,
@@ -206,7 +211,9 @@ BEFORE_MS = {"adc_screen": 46.7465,
              "graph_filter_infuse": 4.4578,
              "minu_screen": 9.1127,
              "minu_screen_norm": 22.9750,
-             "minu_screen_norm[bf16,bf16]": 22.6230}
+             "minu_screen_norm[bf16,bf16]": 22.6230,
+             "screen_t_int8": 18.5816,
+             "legality_canary": 0.0492}
 ROWMAX = ("adc_rowmax", "adc_rowmax_codes")
 SERVE_NORM = dict(SERVE, normalize=True)
 LARGE_PRINTS = ((128, 1000), (256, 96))   # (P, R) of the large-print block
@@ -1766,8 +1773,13 @@ def phase_scripts(engine, card):
         raise AssertionError("canary: the launch after a refused one failed")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    plans = dict(ops.screen_t_int8.plans)
     emit(f"canary: legal plans copy bit for bit (opt-in limit {limit} "
-         f"bytes); launches {counts}")
+         f"bytes); launches {counts}; screen_t_int8 launches by plan "
+         f"{plans}")
+    if plans["tensor cores"] != counts["screen_t_int8"]:
+        raise AssertionError(f"screen_t_int8 at D {esm.D} left the tensor "
+                             f"cores: {plans}")
     if not probe["matmul_exact"]:
         raise AssertionError("h1 probe: matmul != bcast")
     if min(counts[k] for k in ("screen_t_bf16", "screen_t_int8", "h1_probe",
@@ -1809,7 +1821,8 @@ def phase_scripts(engine, card):
         emit(f"screen_t_int8: no library int8 GEMM here ({err})")
         lib = None
     r = hold(lambda: ops.screen_t_int8(xq, dq, corr),
-             by_dect(ops.screen_t_int8_plain, xq, dq, corr), lib, 3)
+             by_dect(ops.screen_t_int8_plain, xq, dq, corr), lib, 3,
+             exact=True)
     r["bound"] = bound(2.0 * B * dq.shape[1] * M * dq.shape[2],
                        nbytes(xq, dq, corr) + r["out_bytes"], PEAK_INT8_OPS)
     rec["screen_t_int8"] = r
@@ -1829,12 +1842,74 @@ def phase_scripts(engine, card):
     rec["h1_probe"] = per_launch(parts)
     y = torch.empty_like(x)
     r = hold(lambda: ops.legality_canary(x, 256, limit),
-             lambda: ops.legality_canary_plain(x), lambda: y.copy_(x), 10)
+             lambda: ops.legality_canary_plain(x), lambda: y.copy_(x), 10,
+             exact=True)
     r["bound"] = bound(0.0, 2.0 * nbytes(x))
     rec["legality_canary"] = r
+    grids = launch_split("canary (256, opt-in limit)",
+                         lambda: ops.legality_canary(x, 256, limit),
+                         "canary_copy")
+    emit(f"canary: plan (256 threads, {limit} bytes) launches grids "
+         f"{sorted(set(grids))} on "
+         f"{torch.cuda.get_device_properties(dev).multi_processor_count} "
+         f"SMs")
+    if not grids or min(grids) <= 8:
+        raise AssertionError(f"canary: the timed plan's grids {grids} do "
+                             f"not fill the card")
+    # the library's copy into a tensor that exists, and into a new one
+    launch_split("copy_", lambda: y.copy_(x))
+    launch_split("clone", lambda: x.clone())
     check_records("kernels, scripts (exp_screen_mfu at B 4096; h1 probe "
                   "mean over its 3 variants; canary copy)", rec)
     return {k: counts[k] for k in rec}, rec
+
+
+def launch_split(label, fn, sym=None, reps: int = 20) -> list:
+    """Host time per call (the enqueue of ``reps`` back-to-back calls, no
+    synchronize) and device time per launch (torch.profiler over another
+    ``reps`` calls: the mean over the launches it traced, which may be
+    fewer than the calls); returns the grid sizes (blocks) of the traced
+    kernels whose name holds ``sym``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("ignore")
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_ms, traced, names = 0.0, 0, []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        dev_ms += us / 1e3
+        traced += e.count
+        names.append(f"{e.key[:40]} x{e.count}")
+    grids = []
+    if sym is not None:
+        with tempfile.TemporaryDirectory() as work:
+            path = os.path.join(work, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        grids = [int(np.prod(e["args"]["grid"])) for e in events
+                 if sym in e.get("name", "") and "grid" in e.get("args", {})]
+    log(f"[profile {label}] host {host_ms:.4f} ms per call, device "
+        + (f"{dev_ms / traced:.4f} ms per launch" if dev_ms > 0 else
+           "not measured (no CUDA events traced)")
+        + f" ({reps} calls traced as: {', '.join(names)})")
+    return grids
 
 
 def profile_call(label, fn):
@@ -1910,7 +1985,8 @@ def main() -> int:
                           r"minu_screen_norm|afis_minu13screen|"
                           r"minu_screen|minutiae_match|texture_match|"
                           r"graph_filter_infuse|graph_filter|screen_t_bf16|"
-                          r"screen_t_int8|h1_probe|canary_copy)_kernel",
+                          r"screen_t_int8_tc|screen_t_int8|h1_probe|"
+                          r"canary_copy)_kernel",
                           sym)
             name = sym[:80] if k is None else \
                 k.group(0) + sym[k.end():k.end() + 48]

@@ -52,6 +52,7 @@ SIGNATURES = {
     "afis_graph_filter_infuse": [_P] * 8 + [_I] * 7 + [_P],
     "afis_screen_t_bf16": [_P] * 3 + [_I] * 5 + [_P],
     "afis_screen_t_int8": [_P] * 4 + [_I] * 5 + [_P],
+    "afis_screen_t_int8_plan": [_I],
     "afis_h1_probe": [_P] * 6 + [_I] * 3 + [_P],
     "afis_legality_canary": [_P] * 2 + [_L] + [_I] * 2 + [_P],
     "afis_max_smem_optin": [],

@@ -1,17 +1,23 @@
 // Tensor-core pieces of the bf16 screens (screen_body.cuh: the ADC screens
-// and the transposed screen; minu_body.cuh: the minutiae screens), and the
-// cp.async copies both bodies stage with: mma.sync.m16n8k16 bf16 x
-// bf16 -> f32 and ldmatrix, with
-// the fragment layouts of the PTX ISA (lane = 4 g + c, g = lane / 4,
-// c = lane % 4):
+// and the transposed screen; minu_body.cuh: the minutiae screens) and of
+// the transposed int8 screen (screen_t.cu), and the cp.async copies the
+// bodies stage with: mma.sync.m16n8k16 bf16 x bf16 -> f32,
+// mma.sync.m16n8k32 s8 x s8 -> s32 and ldmatrix, with the fragment layouts
+// of the PTX ISA (lane = 4 g + c, g = lane / 4, c = lane % 4):
 //   A 16 x 16 (row-major, k contiguous): a0 = (g, 2c..2c+1),
 //     a1 = (g + 8, 2c..), a2 = (g, 2c + 8..), a3 = (g + 8, 2c + 8..);
 //   B 16 x 8 (k contiguous per column n): b0 = (k 2c..2c+1, n g),
 //     b1 = (k 2c + 8.., n g);
 //   C 16 x 8 f32: c0, c1 = (g, 2c), (g, 2c + 1); c2, c3 = (g + 8, 2c..).
+// In bytes the s8 step is the same map at twice the depth: A 16 x 32,
+// a0 = (g, k 4c..4c+3), a1 = (g + 8, 4c..), a2 = (g, 16 + 4c..),
+// a3 = (g + 8, 16 + 4c..); B 32 x 8, b0 = (k 4c..4c+3, n g),
+// b1 = (k 16 + 4c.., n g); C s32 as above (the lowest k in the lowest
+// byte of a register).
 // A column tile stored [n][k] in shared memory (k contiguous, rows padded
-// to an odd number of 16-byte units) gives B fragments by ldmatrix without
-// .trans and without bank conflicts.
+// to an odd number of 16-byte units) gives B fragments of either type by
+// ldmatrix without .trans and without bank conflicts: an 8 x 8 b16 matrix
+// is 8 columns x 16 bytes of k.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,12 +67,42 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a b + c for one 16 x 8 x 32 s8 tile, s32 sums (exact; they wrap
+// modulo 2^32 like any int32 addition, so a result that fits is exact
+// whatever the order).
+__device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4],
+                                       uint32_t b0, uint32_t b1,
+                                       const int c[4]) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]));
+}
+// d += a b for one 16 x 8 x 32 s8 tile.
+__device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of
 // matrix l / 8.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// Two 8 x 8 b16 matrices; lanes 0-15 give the addresses as for x4.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(addr));
 }
 

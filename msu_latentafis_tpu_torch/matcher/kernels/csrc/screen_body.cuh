@@ -38,6 +38,7 @@
 // on the same entry in bf16 (tensor cores) as in f32 (CUDA cores).
 #pragma once
 
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -157,35 +158,71 @@ struct Walk {
 // the screens' fold on the tensor cores
 // ---------------------------------------------------------------------------
 
-// The running maximum of each of a lane's 8 rows (rows g, g + 8 of its
-// warp's 4 m-tiles); at a group's end the quad lanes, which hold the same
-// rows, reduce, and one lane per column slot writes the slot's maxima.
-struct MaxFold {
-  float mx[4][2];
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
+__device__ __forceinline__ void set_lowest(float& v) { v = -INFINITY; }
+__device__ __forceinline__ void set_lowest(int& v) { v = INT_MIN; }
+
+// How a block's warps split a group of gn rows: wr row slots of kWarpRows
+// rows x wc column slots; this warp takes row slot rw of column slot cw
+// (idle where cw >= wc).
+struct WarpSplit {
+  int wr, wc, rw, cw;
+
+  __device__ void set(int gn) {
+    const int warp = threadIdx.x >> 5;
+    wr = (gn + kWarpRows - 1) / kWarpRows;
+    wc = kWarps / wr;
+    rw = warp % wr;
+    cw = warp / wr;
+  }
+};
+
+// The running maximum (V: float, or int for the int8 screen) of each of a
+// lane's 8 rows (rows g, g + 8 of its warp's 4 m-tiles); at a group's end
+// the quad lanes, which hold the same rows, reduce, and one lane per
+// column slot writes the slot's maxima.
+template <class V>
+struct MaxFoldT {
+  V mx[4][2];
 
   __device__ void reset() {
 #pragma unroll
-    for (int m = 0; m < 4; ++m) mx[m][0] = mx[m][1] = -INFINITY;
+    for (int m = 0; m < 4; ++m) {
+      set_lowest(mx[m][0]);
+      set_lowest(mx[m][1]);
+    }
   }
-  __device__ void add(int m, int h, float v0, int, float v1, int) {
-    mx[m][h] = fmaxf(mx[m][h], fmaxf(v0, v1));
+  __device__ void add(int m, int h, V v0, int, V v1, int) {
+    mx[m][h] = vmax(mx[m][h], vmax(v0, v1));
   }
   // part[cw * wr * kWarpRows + r]: group row r's maximum over slot cw.
-  __device__ void to_part(float* part, int rw, int wr, int cw,
-                          int wc) const {
+  __device__ void to_part(V* part, const WarpSplit& sp) const {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float v = mx[m][h];
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-        const int r = rw * kWarpRows + m * 16 + (lane >> 2) + 8 * h;
-        if (cw < wc && (lane & 3) == 0) part[cw * wr * kWarpRows + r] = v;
+        V v = mx[m][h];
+        v = vmax(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = vmax(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        const int r = sp.rw * kWarpRows + m * 16 + (lane >> 2) + 8 * h;
+        if (sp.cw < sp.wc && (lane & 3) == 0)
+          part[sp.cw * sp.wr * kWarpRows + r] = v;
       }
   }
 };
+using MaxFold = MaxFoldT<float>;
+
+// Group row r's maximum over the nslot column slots of part (slot rows a
+// slot).
+template <class V>
+__device__ __forceinline__ V slot_max(const V* part, int slot, int nslot,
+                                      int r) {
+  V v = part[r];
+  for (int q = 1; q < nslot; ++q) v = vmax(v, part[q * slot + r]);
+  return v;
+}
 
 // ---------------------------------------------------------------------------
 // the screen's latent rows and its epilogue
@@ -271,18 +308,14 @@ struct LatRows {
   }
   __device__ void finish(const float* part, int slot, int nslot,
                          Step st) const {
-    finish_group<XT>([&](int r) {
-      float v = part[r];
-      for (int q = 1; q < nslot; ++q) v = fmaxf(v, part[q * slot + r]);
-      return v;
-    }, term, lsum, st.b, st.g, *this);
+    finish_group<XT>([&](int r) { return slot_max(part, slot, nslot, r); },
+                     term, lsum, st.b, st.g, *this);
   }
   template <class Src>
-  __device__ void finish(const MaxFold& f, float* part, int rw, int wr,
-                         int cw, int wc, Step st, const Src&,
-                         const Walk&) const {
-    f.to_part(part, rw, wr, cw, wc);
-    finish(part, wr * kWarpRows, wc, st);
+  __device__ void finish(const MaxFold& f, float* part, const WarpSplit& sp,
+                         Step st, const Src&, const Walk&) const {
+    f.to_part(part, sp);
+    finish(part, sp.wr * kWarpRows, sp.wc, st);
   }
 
   // f32 body: v = (dot + a1) + a2 folded into rmax, then finish_group.
@@ -388,18 +421,14 @@ struct TRows {
                          Step st) const {
     const int g0 = st.g * group, gn = group_rows(st.g);
     __syncthreads();
-    for (int r = threadIdx.x; r < gn; r += kThreads) {
-      float v = part[r];
-      for (int q = 1; q < nslot; ++q) v = fmaxf(v, part[q * slot + r]);
-      raw[(size_t)st.b * M + g0 + r] = v;
-    }
+    for (int r = threadIdx.x; r < gn; r += kThreads)
+      raw[(size_t)st.b * M + g0 + r] = slot_max(part, slot, nslot, r);
   }
   template <class Src>
-  __device__ void finish(const MaxFold& f, float* part, int rw, int wr,
-                         int cw, int wc, Step st, const Src&,
-                         const Walk&) const {
-    f.to_part(part, rw, wr, cw, wc);
-    finish(part, wr * kWarpRows, wc, st);
+  __device__ void finish(const MaxFold& f, float* part, const WarpSplit& sp,
+                         Step st, const Src&, const Walk&) const {
+    f.to_part(part, sp);
+    finish(part, sp.wr * kWarpRows, sp.wc, st);
   }
 };
 
@@ -671,11 +700,11 @@ struct ArgRows {
     __syncthreads();
   }
   template <class Src>
-  __device__ void finish(const ArgFold& f, float*, int rw, int wr, int cw,
-                         int wc, Step st, const Src& src,
-                         const Walk& w) const {
+  __device__ void finish(const ArgFold& f, float*, const WarpSplit& sp,
+                         Step st, const Src& src, const Walk& w) const {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int slot = wr * kWarpRows;
+    const int rw = sp.rw, cw = sp.cw, wc = sp.wc;
+    const int slot = sp.wr * kWarpRows;
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll
@@ -828,35 +857,31 @@ __global__ void __launch_bounds__(kThreads, 1) screen_tc_kernel(
   src.init(sm);
   Step st = w.first();
   if (st.b >= w.B) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31;
   typename Src::In in;
   src.begin(in, st, w);
 
   uint32_t a[4][kMaxKSteps][4];   // this warp's 64 rows, all of D
   typename Rows::RowState rs;
   typename Rows::Fold fo;         // rows g, g + 8 of each m-tile
-  int loaded = -1, wr = 0, wc = 0, rw = 0, cw = 0;
+  int loaded = -1;
+  WarpSplit sp{0, 0, 0, 0};
   for (int i = 0; st.b < w.B; ++i) {
     const Step nx = w.next(st);
     const auto tl = src.stage(in, i, st, nx, w);
     if (st.t == 0) {
-      // warps split a group as wr row slots x wc column slots
-      const int gn = rows.group_rows(st.g);
-      wr = (gn + kWarpRows - 1) / kWarpRows;
-      wc = kWarps / wr;
-      rw = warp % wr;
-      cw = warp / wr;
+      sp.set(rows.group_rows(st.g));
       if (!Rows::kKeepA || st.g != loaded) {
-        rows.load(a, rs, st.g * rows.group + rw * kWarpRows);
+        rows.load(a, rs, st.g * rows.group + sp.rw * kWarpRows);
         loaded = w.fixed || w.ngroups == 1 ? st.g : -1;
       }
       fo.reset();
     }
-    if (cw < wc) {
+    if (sp.cw < sp.wc) {
       const int ncols = w.ncols(st.t);
       const int nn = (ncols + 7) >> 3;
       const int cq = lane & 3;
-      for (int n = 2 * cw; n < nn; n += 2 * wc) {   // n-tiles n, n + 1
+      for (int n = 2 * sp.cw; n < nn; n += 2 * sp.wc) {   // n, n + 1
         const bool two = n + 1 < nn;
         uint32_t b[2][3][4];
         float acc[2][4][4];
@@ -897,7 +922,7 @@ __global__ void __launch_bounds__(kThreads, 1) screen_tc_kernel(
       }
     }
     if (st.t == w.ntiles - 1)
-      rows.finish(fo, part, rw, wr, cw, wc, st, src, w);
+      rows.finish(fo, part, sp, st, src, w);
     st = nx;
   }
 }

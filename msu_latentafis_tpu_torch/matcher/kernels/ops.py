@@ -102,6 +102,9 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)
 TC_SUM_ULPS = 4.0 * 2.0 ** -24
 # what the row max's launches ran on (``adc_rowmax_body``)
 ROWMAX_BODIES = ("tensor cores", "f32 body", "CUDA-core tiles")
+# what the transposed int8 screen's launches ran on
+# (``afis_screen_t_int8_plan``: D <= 96 on the tensor cores)
+SCREEN_T_INT8_PLANS = ("tensor cores", "dp4a")
 KERNELS = ("adc_rowmax", "texture_match", "minutiae_match", "minu_screen",
            "adc_screen", "adc_screen_codes", "adc_rowmax_codes",
            "minu_screen_norm", "graph_filter_packed", "graph_filter",
@@ -121,6 +124,7 @@ def reset_launch_counts() -> None:
         globals()[k].launches = 0
     for k in ("adc_rowmax", "adc_rowmax_codes"):
         globals()[k].bodies = dict.fromkeys(ROWMAX_BODIES, 0)
+    screen_t_int8.plans = dict.fromkeys(SCREEN_T_INT8_PLANS, 0)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
@@ -164,7 +168,10 @@ def _is_cuda(device: torch.device) -> bool:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream of ``device`` (a tensor's, so
+    it has an index). Building a ``torch.cuda.Stream`` object for it costs
+    the host more than the launch canary's kernel runs."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _check_codes(codes: torch.Tensor, codebook: torch.Tensor, B: int,
@@ -1177,7 +1184,11 @@ def screen_t_int8(xt: torch.Tensor, dect: torch.Tensor, corr: torch.Tensor,
                   entries: int = 8) -> torch.Tensor:
     """The transposed int8 x int8 screen of the ADC-screen experiment:
     xt [D, M] and dect [B, Rt, D] int8 (D a multiple of 4), corr [B, Rt]
-    int32 -> raw [B, M] int32."""
+    int32 -> raw [B, M] int32. On the card the plain version's integers bit
+    for bit wherever they fit in int32: D <= 96 on the tensor cores, the
+    blocks of each group of 512 columns of xt taking the gallery
+    ``entries`` at a time (1 to 64); wider D with ``__dp4a``
+    (``screen_t_int8.plans`` counts the launches of each)."""
     D, M = xt.shape
     B, Rt, _ = dect.shape
     dev = xt.device
@@ -1187,15 +1198,19 @@ def screen_t_int8(xt: torch.Tensor, dect: torch.Tensor, corr: torch.Tensor,
     if not _is_cuda(dev):
         return screen_t_int8_plain(xt, dect, corr)
     raw = torch.empty((B, M), dtype=torch.int32, device=dev)
-    err = _build.load().afis_screen_t_int8(
+    lib = _build.load()
+    err = lib.afis_screen_t_int8(
         xt.data_ptr(), dect.data_ptr(), corr.data_ptr(), raw.data_ptr(), M, B,
         Rt, D, entries, _stream(dev))
     _build.check(err, "screen_t_int8")
     screen_t_int8.launches += 1
+    screen_t_int8.plans[SCREEN_T_INT8_PLANS[lib.afis_screen_t_int8_plan(D)]] \
+        += 1
     return raw
 
 
 screen_t_int8.launches = 0
+screen_t_int8.plans = dict.fromkeys(SCREEN_T_INT8_PLANS, 0)
 
 
 def screen_t_operands(x: torch.Tensor, dec: torch.Tensor,
@@ -1329,10 +1344,11 @@ def max_smem_optin() -> int:
 
 def legality_canary(x: torch.Tensor, threads: int = 256,
                     smem_bytes: int = 0) -> torch.Tensor:
-    """A copy of x (f32, any shape) launched with the plan (``threads`` per
-    block, ``smem_bytes`` of dynamic shared memory). A plan the card
-    refuses raises RuntimeError naming the CUDA error; it never returns
-    output."""
+    """A copy of x (f32, any shape, any offset into its storage) launched
+    with the plan (``threads`` per block, ``smem_bytes`` of dynamic shared
+    memory). A plan the card refuses raises RuntimeError naming the CUDA
+    error; it never returns output. The grid does not follow the plan:
+    about as many blocks as the card holds at it."""
     dev = x.device
     _check("x", x, tuple(x.shape), torch.float32, dev)
     if not _is_cuda(dev):

@@ -9,7 +9,9 @@ port's plain versions. Tolerances: the transposed bf16 screen's raw maxima
 rtol 1e-5 / atol 1e-4 (bf16 x bf16 products are exact in f32; the sums run
 in another order); the int8 screen's int32 maxima exactly; the end-to-end
 screens rtol 1e-5 / atol 1e-3 (sums of a few hundred terms); the H1 probe
-rtol 1e-5 / atol 1e-4.
+rtol 1e-5 / atol 1e-4. A NumPy model of the int8 screen's tensor-core
+fragments (csrc/screen_t.cu, mma.sync.m16n8k32 s8) rebuilds every dot
+exactly.
 """
 import functools
 
@@ -70,14 +72,17 @@ def pallas_t_bf16(xt, dect):
 
 
 def pallas_t_int8(xt, dect, corr):
-    """The script's int8 pallas_call (:124), one latent chunk."""
+    """The script's int8 pallas_call (:124), one latent chunk; xt [D_, M_],
+    dect [B_, Rt_, D_] (B_ a multiple of E), corr [B_, Rt_, 1]."""
+    D_, M_ = xt.shape
+    B_, Rt_, _ = dect.shape
     return pl.pallas_call(
-        kernel_int8, grid=(B // E, 1),
-        in_specs=[pl.BlockSpec((D, M), lambda b, c: (0, c)),
-                  pl.BlockSpec((E, Rt, D), lambda b, c: (b, 0, 0)),
-                  pl.BlockSpec((E, Rt, 1), lambda b, c: (b, 0, 0))],
-        out_specs=pl.BlockSpec((E, M), lambda b, c: (b, c)),
-        out_shape=jax.ShapeDtypeStruct((B, M), jnp.int32),
+        kernel_int8, grid=(B_ // E, 1),
+        in_specs=[pl.BlockSpec((D_, M_), lambda b, c: (0, c)),
+                  pl.BlockSpec((E, Rt_, D_), lambda b, c: (b, 0, 0)),
+                  pl.BlockSpec((E, Rt_, 1), lambda b, c: (b, 0, 0))],
+        out_specs=pl.BlockSpec((E, M_), lambda b, c: (b, c)),
+        out_shape=jax.ShapeDtypeStruct((B_, M_), jnp.int32),
         interpret=True)(xt, dect, corr)
 
 
@@ -134,17 +139,179 @@ def test_screen_t_bf16_plain_matches_pallas(rng):
     assert ops.screen_t_bf16.launches == 0        # CPU tensors: plain path
 
 
-def test_screen_t_int8_plain_equals_pallas(rng):
-    xt = rng.integers(-127, 128, (D, M)).astype(np.int8)
-    dect = rng.integers(-127, 128, (B, Rt, D)).astype(np.int8)
-    corr = rng.integers(-2000, 2000, (B, Rt)).astype(np.int32)
+def int8_case(rng, case):
+    """(xt [D, M], dect [B, Rt, D], corr [B, Rt]) int8 / int32 operands:
+    random at the module's shapes; the extremes (dect all -128 against xt
+    +-127, D 96); a ragged case (M 600, Rt 100, D 36); an entry whose every
+    column carries -2^28 in corr (an invalid entry)."""
+    D_, M_, Rt_ = dict(random=(D, M, Rt), extremes=(96, 64, 12),
+                       ragged=(36, 600, 100), invalid=(D, M, Rt))[case]
+    xt = rng.integers(-127, 128, (D_, M_)).astype(np.int8)
+    dect = rng.integers(-128, 128, (B, Rt_, D_)).astype(np.int8)
+    corr = rng.integers(-2000, 2000, (B, Rt_)).astype(np.int32)
     corr[1, 3] -= 1 << 28
+    if case == "extremes":
+        xt = np.where(rng.random((D_, M_)) < 0.5, -127, 127).astype(np.int8)
+        dect = np.full((B, Rt_, D_), -128, np.int8)
+    if case == "invalid":
+        corr[2] -= 1 << 28
+    return xt, dect, corr
+
+
+@pytest.mark.parametrize("case", ["random", "extremes", "ragged", "invalid"])
+def test_screen_t_int8_plain_equals_pallas(rng, case):
+    xt, dect, corr = int8_case(rng, case)
     want = pallas_t_int8(jnp.asarray(xt), jnp.asarray(dect),
                          jnp.asarray(corr)[..., None])
     got = ops.screen_t_int8(T(xt, torch.int8), T(dect, torch.int8),
                             T(corr, torch.int32), entries=E)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# the int8 screen's tensor-core fragments (csrc/screen_t.cu), modelled
+# ---------------------------------------------------------------------------
+
+KCT, KLD8, KROWS, KWARPS = 128, 112, 512, 8    # screen_t.cu / screen_body.cuh
+LANE = np.arange(32)
+G, C = LANE >> 2, LANE & 3
+
+
+def u8(a):
+    return np.asarray(a).astype(np.int8).view(np.uint8).astype(np.uint32)
+
+
+def s8(reg, byte):
+    return ((reg >> (8 * byte)) & 0xFF).astype(np.uint8).view(np.int8) \
+        .astype(np.int64)
+
+
+def kernel_a(xt, r0, ks):
+    """[32, 4] registers of the A fragment of rows m r0 .. r0 + 15 at k-step
+    ks as screen_t.cu packs them (pack_k4): register h of lane 4 g + c
+    holds xt[k .. k + 3, m], k = 32 ks + 4 c + 16 (h / 2), m = r0 + g +
+    8 (h % 2), lowest k in the lowest byte, zero past D or M."""
+    D_, M_ = xt.shape
+    regs = np.zeros((32, 4), np.uint32)
+    for h in range(4):
+        k = 32 * ks + 4 * C + 16 * (h >> 1)
+        m = r0 + G + 8 * (h & 1)
+        ok = (k < D_) & (m < M_)
+        for q in range(4):
+            v = u8(xt[np.minimum(k + q, D_ - 1), np.minimum(m, M_ - 1)])
+            regs[:, h] |= np.where(ok, v, 0).astype(np.uint32) << (8 * q)
+    return regs
+
+
+def ldmatrix(smem, addr, nmat):
+    """ldmatrix.m8n8.x{nmat}.b16: register i of lane l holds the 4 bytes at
+    4 (l % 4) of the 16-byte row whose address lane 8 i + l / 4 gave."""
+    out = np.zeros((32, nmat), np.uint32)
+    for i in range(nmat):
+        row = addr[8 * i + LANE // 4] + 4 * (LANE % 4)
+        for q in range(4):
+            out[:, i] |= smem[row + q].astype(np.uint32) << (8 * q)
+    return out
+
+
+def mma_s8(a, b, c):
+    """mma.sync.m16n8k32.row.col.s32.s8.s8.s32 by the PTX ISA's fragment
+    tables: a_i (i < 16, register i / 4, byte i % 4) at row g + 8 [4 <= i <
+    8 or i >= 12], col 4 c + i % 4 + 16 [i >= 8]; b_i (i < 8) at k 4 c +
+    i % 4 + 16 [i >= 4], col g; c_i / d_i at row g + 8 [i >= 2], col
+    2 c + i % 2."""
+    A = np.zeros((16, 32), np.int64)
+    Bm = np.zeros((32, 8), np.int64)
+    Cm = np.zeros((16, 8), np.int64)
+    for i in range(16):
+        A[G + 8 * int(4 <= i < 8 or i >= 12),
+          4 * C + (i & 3) + 16 * int(i >= 8)] = s8(a[:, i // 4], i % 4)
+    for i in range(8):
+        Bm[4 * C + (i & 3) + 16 * int(i >= 4), G] = s8(b[:, i // 4], i % 4)
+    for i in range(4):
+        Cm[G + 8 * int(i >= 2), 2 * C + (i & 1)] = c[:, i]
+    Dm = A @ Bm + Cm
+    return np.stack([Dm[G + 8 * int(i >= 2), 2 * C + (i & 1)]
+                     for i in range(4)], axis=1)
+
+
+def model_screen_t_int8(xt, dect, corr, rng):
+    """The kernel's walk for every entry: 128-column tiles stored [n][112
+    bytes] (rows past the tile's columns hold stale bytes, here random), the
+    B fragments by its ldmatrix addresses, corr as the first k-step's C
+    operand, the masked maximum; returns (dots + corr [B, Rt, M] as the
+    fragments give them, raw [B, M])."""
+    D_, M_ = xt.shape
+    B_, Rt_, _ = dect.shape
+    KS = -(-D_ // 32)
+    dots = np.full((B_, Rt_, M_), np.iinfo(np.int64).min)
+    raw = np.full((B_, M_), np.iinfo(np.int32).min, np.int64)
+    for b in range(B_):
+        for c0 in range(0, Rt_, KCT):
+            ncols = min(KCT, Rt_ - c0)
+            smem = u8(rng.integers(-128, 128, KCT * KLD8)).astype(np.uint8)
+            cs = rng.integers(-2 ** 31, 2 ** 31, KCT)
+            for n in range(ncols):
+                smem[n * KLD8:n * KLD8 + D_] = u8(dect[b, c0 + n])
+                cs[n] = corr[b, c0 + n]
+            smem[np.arange(KCT)[:, None] * KLD8
+                 + np.arange(D_, 32 * KS)[None]] = 0     # zeroed at start
+            for g0 in range(0, M_, KROWS):
+                gn = min(KROWS, M_ - g0)
+                wr = -(-gn // 64)
+                wc = KWARPS // wr
+                for warp in range(KWARPS):
+                    rw, cw = warp % wr, warp // wr
+                    if cw >= wc:
+                        continue
+                    for n in range(cw, -(-ncols // 8), wc):
+                        rows = (8 * n + (LANE & 7)) * KLD8
+                        bf = []
+                        for j in range(KS // 2):
+                            r = ldmatrix(smem, rows + 64 * j
+                                         + 16 * (LANE >> 3), 4)
+                            bf += [r[:, :2], r[:, 2:]]
+                        if KS & 1:
+                            bf.append(ldmatrix(
+                                smem, rows + 64 * (KS // 2)
+                                + 16 * ((LANE >> 3) & 1), 2))
+                        col = 8 * n + 2 * C
+                        cin = np.stack([cs[col], cs[col + 1], cs[col],
+                                        cs[col + 1]], axis=1)
+                        for m in range(4):
+                            r0 = g0 + rw * 64 + 16 * m
+                            acc = mma_s8(kernel_a(xt, r0, 0), bf[0], cin)
+                            for ks in range(1, KS):
+                                acc = mma_s8(kernel_a(xt, r0, ks), bf[ks],
+                                             acc)
+                            for i in range(4):
+                                row = r0 + G + 8 * int(i >= 2)
+                                cl = col + (i & 1)
+                                ok = (row < M_) & (cl < ncols)
+                                dots[b, c0 + cl[ok], row[ok]] = acc[ok, i]
+                                np.maximum.at(raw[b], row[ok], acc[ok, i])
+    return dots, raw
+
+
+@pytest.mark.parametrize("case", ["ragged", "D96"])
+def test_int8_fragment_model_rebuilds_every_dot(rng, case):
+    """The kernel's fragment packing and ldmatrix addresses, run through the
+    PTX ISA's m16n8k32 s8 tables, give every dot xt.T @ dect plus corr, and
+    the masked maximum gives the plain version's raw: a ragged case (M 600:
+    a last row group of 88 split over column slots; Rt 100: a ragged last
+    n-tile; D 36: two k-steps, padded) and D 96 (three k-steps: ldmatrix x4
+    and x2) with two column tiles (Rt 130)."""
+    D_, M_, Rt_ = dict(ragged=(36, 600, 100), D96=(96, 80, 130))[case]
+    xt = rng.integers(-128, 128, (D_, M_)).astype(np.int8)
+    dect = rng.integers(-128, 128, (2, Rt_, D_)).astype(np.int8)
+    corr = rng.integers(-5000, 5000, (2, Rt_)).astype(np.int32)
+    dots, raw = model_screen_t_int8(xt, dect, corr, rng)
+    want = np.einsum("brd,dm->brm", dect.astype(np.int64),
+                     xt.astype(np.int64)) + corr[:, :, None]
+    np.testing.assert_array_equal(dots, want)
+    np.testing.assert_array_equal(raw, ops.screen_t_int8_plain(
+        T(xt, torch.int8), T(dect, torch.int8), T(corr, torch.int32)).numpy())
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -296,6 +463,30 @@ def test_legality_canary_plain_copies(rng):
     assert ops.legality_canary.launches == 0
     with pytest.raises(TypeError):
         ops.legality_canary(x.double())
+
+
+@pytest.mark.parametrize("n,offset", [(1, 0), (1, 1), (3, 1),
+                                      (458753, 1)])
+def test_legality_canary_plain_copies_edges(rng, n, offset):
+    """The plain copy of a view ``offset`` floats into its storage (on the
+    card x and y then differ in alignment) and of lengths that are no
+    multiple of 4: bit for bit, a new tensor."""
+    base = T(rng.standard_normal(n + offset).astype(np.float32))
+    x = base[offset:]
+    y = ops.legality_canary(x, 128, 4096)
+    assert x.storage_offset() == offset and y.shape == (n,)
+    assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+    assert ops.legality_canary.launches == 0
+
+
+def test_mma_peak_needs_the_card(capsys):
+    """The tensor-core rate probe counts 2 m n k per instruction and, with
+    no card, exits 2 without building anything."""
+    from msu_latentafis_tpu_torch.scripts import mma_peak
+    assert mma_peak.INSTRUCTIONS == {
+        "mma.sync.m16n8k32.s8": (0, 8192), "mma.sync.m16n8k16.bf16": (1, 4096)}
+    assert mma_peak.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_stage_clocks_instruments_the_kernels(tmp_path):
