@@ -23,16 +23,26 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      infuse filter with val and with simi, on sets of that block's width;
      the large-print block: minutiae_match and both screens at P 128 /
      R 1000 (the reference's largest rolled print) and P 256 / R 96;
-  2. the CLI: a 64-file synthetic .dat gallery with one planted mate and
-     one rolled print of 1,000 minutiae, ``cli.main(["match", ...])`` dense,
-     with ``--rerank 16``, and through ``--config`` with ComputeDtype
-     "bfloat16" (the codebook and score paths from the config), the mate
-     must be rank 1 in the CSV;
+  2. the CLI: a 64-file synthetic .dat gallery with a planted mate for
+     each of 8 latents and one rolled print of 1,000 minutiae,
+     ``cli.main(["match", "-l", ...])`` dense, with ``--rerank 16``, and
+     through ``--config`` with ComputeDtype "bfloat16" (the codebook and
+     score paths from the config): the mate must be rank 1 in the CSV and
+     each run writes the top 24's 72 correspondence files, the mate's
+     three non-empty; then ``-ldir`` over the 8 latents (5 shape buckets)
+     and an empty one, with ``--trace``: every mate at rank 1 in its score
+     file, the empty latent's file 0, the match kernels in the trace; the
+     native gallery loader's first-use build timed, then the loader against
+     the Python packer, every array equal, on this directory and on 1,024
+     more rolled files, both loaders' seconds printed;
   3. the dense engine on a 16,384-entry gallery built on the card from a
      seed, 4 latents with planted mates through ``match_scores_batch``:
      every mate at rank 1, every dense kernel launched; then the three
      dense kernels held and timed as this path launches them (4 latents x
-     64 entries), on a block without a mate and on a mate's block;
+     64 entries), on a block without a mate and on a mate's block; then
+     ``list_to_list`` over those 4 latents and 4 of another shape (their
+     mates in the same gallery; two buckets): every mate at rank 1 and
+     every row equal to that latent's ``one_to_list`` row bit for bit;
   4. serving on phase 3's gallery and latents: ``match_scores_batch_reranked``
      with m 512, without and with prescreen 256 / 64 / 1: mates at rank 1,
      exact scores equal to phase 3's dense scores at the kept indices, the
@@ -87,14 +97,17 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      the screen's top-k1 / top-m set differences counted as in phase 8;
   10. the ported scripts' kernels: exp_screen_mfu's five variants at its
      shapes (NL 8, Lt 448, Rt 448, D 96, B 4096), the H1 probe's three
-     variants (matmul must equal bcast), the launch-legality canary (a
-     legal plan copies, a plan above the card's shared memory or thread
-     limit must raise); each kernel held against its plain version
-     (screen_t_bf16, on the tensor cores, within ops.screen_t_tol;
-     screen_t_int8, on the tensor cores, bit for bit); the canary's grid
-     at its timed plan (from the profiler's trace), and the canary,
-     copy_ and clone profiled (host time per call beside device time per
-     launch).
+     variants (matmul must equal bcast; each bit for bit against its plain
+     version; its plan printed; its bound counted on the valid unordered
+     pairs, the larger of the MUFU pipe's (the square roots they need)
+     and the f32 rate's, beside the old bound on all ordered pairs), the
+     launch-legality canary (a legal plan copies, a plan above the card's
+     shared memory or thread limit must raise); each kernel held against
+     its plain version (screen_t_bf16, on the tensor cores, within
+     ops.screen_t_tol; screen_t_int8, on the tensor cores, bit for bit);
+     the canary's grid at its timed plan (from the profiler's trace), and
+     the canary, copy_ and clone profiled (host time per call beside
+     device time per launch).
 The kernels' JSON record takes each kernel's launches from the path that
 runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 6) and its numbers from the same path's shapes and data: means per launch
@@ -153,6 +166,8 @@ NOFMA_F32_FLOPS = PEAK_F32_FLOPS / 2
 PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
 PEAK_INT8_OPS = 1979e12      # H100 SXM int8 tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+MUFU_PER_SM = 16             # H100 special-function lanes per SM and clock
+SM_CLOCK_HZ = 1.98e9         # H100 SXM boost clock, at which the peaks hold
 TOL = dict(rtol=1e-5, atol=1e-4)
 HERE = os.path.dirname(os.path.abspath(__file__))
 PALLAS = "msu_latentafis_tpu/matcher/pallas_kernels.py"
@@ -179,7 +194,7 @@ KERNEL_META = {
 # graph_filter launches graph_filter_packed's kernel after building the
 # cos / sin packs, as fused_graph_filter wraps the same Pallas body
 SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
-# ms per launch of the kernels redesigned for Hopper in the last five
+# ms per launch of the kernels redesigned for Hopper in the last six
 # slices, before their redesign, on their main paths' shapes (PERF.md
 # section 6: NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py): the
 # predecoded and transposed screens, then the ADC row max on the screens'
@@ -188,8 +203,8 @@ SHARED_SOURCE = {"graph_filter": "graph_filter_packed"}
 # section 5) and the graph filters that share the body, then the two
 # minutiae screens on their new body (f32 serving, f32 normalize serving,
 # mode normalize serving: means per launch over a call's chunks), then the
-# transposed int8 screen and the launch canary (phase 10); printed beside
-# this run's
+# transposed int8 screen and the launch canary, then the H1 probe (a mean
+# over its three variants; phase 10); printed beside this run's
 BEFORE_MS = {"adc_screen": 46.7465,
              "adc_screen[bf16,int8]": 46.9275,
              "screen_t_bf16": 80.6312,
@@ -213,7 +228,8 @@ BEFORE_MS = {"adc_screen": 46.7465,
              "minu_screen_norm": 22.9750,
              "minu_screen_norm[bf16,bf16]": 22.6230,
              "screen_t_int8": 18.5816,
-             "legality_canary": 0.0492}
+             "legality_canary": 0.0492,
+             "h1_probe": 0.4335}
 ROWMAX = ("adc_rowmax", "adc_rowmax_codes")
 SERVE_NORM = dict(SERVE, normalize=True)
 LARGE_PRINTS = ((128, 1000), (256, 96))   # (P, R) of the large-print block
@@ -302,6 +318,50 @@ def bound(ops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
         if peak == PEAK_F32_FLOPS else None
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", nofma)
+
+
+def h1_work(p: dict, variant: str, step: int = 256):
+    """The H1 probe's work on these sets: the valid unordered pairs
+    (diagonal included), the square roots they need (one per side whose
+    squared distance is not 0: the bcast / matmul diagonal and duplicated
+    points need none; the Gram diagonal's rounding residue does) and the
+    pairs with 5 < dist < 30, where a division is needed (the plain
+    distances of ``variant``)."""
+    import torch
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    n = (p["vf"] != 0).sum(1).double()
+    pairs = float((n * (n + 1) / 2).sum())
+    roots = band = 0
+    for a in range(0, p["vf"].shape[0], step):
+        q = {k: v[a:a + step] for k, v in p.items()}
+        d1 = ops._probe_dist(q["lx"], q["ly"], variant)
+        d2 = ops._probe_dist(q["rx"], q["ry"], variant)
+        ok = torch.triu((q["vf"] != 0)[:, :, None]
+                        & (q["vf"] != 0)[:, None, :])
+        roots += int((ok & (d1 != 0)).sum()) + int((ok & (d2 != 0)).sum())
+        d = (d1 - d2).abs()
+        band += int((ok & (d > 5.0) & (d < 30.0)).sum())
+    return pairs, roots, band
+
+
+def h1_bound(pairs: float, roots: int, band: int, nbytes_: float):
+    """The H1 probe's bound on the work it needs: per valid unordered pair
+    16 FP32 operations (the two distances' 4 differences, 4 squares and 2
+    sums, |d1 - d2|, 30 - dist, vf_i vf_j, H1 times it, and the pair's two
+    row-sum additions) and per band pair 3 more (a / 25 as a product by
+    1 / 25 and two multiply-adds: the divisor is a constant) at the f32
+    rate; the square roots needed on the MUFU pipe (one rsqrt each, 16
+    lanes an SM a clock at the boost clock); the larger of the two, and of
+    the bytes. Returns (ms, by, no-FMA ms, FP32 ms, MUFU ms)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fp32 = 16.0 * pairs + 3.0 * band
+    mufu_ms = roots / (sms * MUFU_PER_SM * SM_CLOCK_HZ) * 1e3
+    t_bytes = nbytes_ / PEAK_BYTES * 1e3
+    ms = max(fp32 / PEAK_F32_FLOPS * 1e3, mufu_ms, t_bytes)
+    return (ms, "bytes" if t_bytes >= ms else "operations",
+            max(fp32 / NOFMA_F32_FLOPS * 1e3, mufu_ms, t_bytes),
+            fp32 / PEAK_F32_FLOPS * 1e3, mufu_ms)
 
 
 def peak_of(t) -> float:
@@ -922,58 +982,134 @@ def phase_kernels(engine, cb, rng):
                   large_print_records(rng, engine.device, reps=5))
 
 
-def phase_cli(cb, rng, workdir):
-    """64 rolled .dat files (one planted mate, one impostor of 1,000
-    minutiae, the reference's largest rolled print) through cli.main."""
+CLI_MATES = (37, 5, 13, 21, 29, 45, 53, 61)   # latent i's mate in phase 2
+CLI_BIG = 12                                    # the 1,000-minutiae print
+# (minutiae, texture minutiae) of phase 2's latents: -ldir's shape buckets
+# (Lm by 32, Lt by 128) are (64, 384) for latent 0 and three others
+CLI_LATENTS = ((48, 300), (20, 100), (60, 448), (48, 200), (30, 300),
+               (48, 380), (12, 60), (40, 256))
+LOADER_G = 1024                                 # the native loader's 2nd dir
+
+
+def to_pixels(t):
+    """Writers quantize texture coords (x-24)/16; synthetic templates carry
+    quantized coords, so map them to pixel space before writing."""
     import numpy as np
+    for tt in t.texture_template:
+        m = np.asarray(tt.minutiae, np.float64)
+        m[:, :2] = m[:, :2] * 16.0 + 24.0
+        tt.minutiae = m
+    return t
+
+
+def check_native_loader(cb, gdir: str, label: str) -> None:
+    """The native C++ loader against the Python packer on one directory:
+    every array equal, both loaders' seconds printed; fails where the
+    native loader cannot be built on this host."""
+    import glob
+    import numpy as np
+    from msu_latentafis_tpu_torch.templates import (pack_gallery,
+                                                    read_final_template)
+    from msu_latentafis_tpu_torch.templates import native_io
+    t0 = time.perf_counter()
+    nat = native_io.pack_gallery_native(gdir, cb)
+    native_s = time.perf_counter() - t0
+    if nat is None:
+        raise AssertionError("the native gallery loader did not build")
+    t0 = time.perf_counter()
+    files = sorted(glob.glob(os.path.join(gdir, "*.dat")))
+    py = pack_gallery([read_final_template(f, kind="rolled") for f in files],
+                      cb, names=[os.path.splitext(os.path.basename(f))[0]
+                                 for f in files])
+    python_s = time.perf_counter() - t0
+    bad = [k for k in ("minu_des", "minu_xy", "minu_ori", "minu_n",
+                       "tex_codes", "tex_sqnorm", "tex_xy", "tex_ori",
+                       "tex_n")
+           if not np.array_equal(getattr(nat, k), getattr(py, k))
+           or getattr(nat, k).dtype != getattr(py, k).dtype]
+    if bad or nat.names != py.names:
+        raise AssertionError(f"native loader != Python packer ({label}): "
+                             f"{bad}")
+    log(f"[cli] native loader ({label}, {len(files)} files, "
+        f"{native_io.library_path().name}): {native_s:.3f} s, Python "
+        f"packer {python_s:.3f} s; every array equal "
+        f"(Rm {nat.minu_des.shape[1]}, Rt {nat.tex_codes.shape[1]})")
+
+
+def phase_cli(cb, rng, workdir):
+    """64 rolled .dat files (a planted mate for each of 8 latents, one
+    impostor of 1,000 minutiae, the reference's largest rolled print)
+    through cli.main: -l dense (with the top-24's correspondence files),
+    --rerank 16, --config bf16, then -ldir over the 8 latents (with
+    --trace); the native loader's first-use build timed, then the loader
+    against the Python packer on this gallery and on 1,024 more rolled
+    files."""
+    import copy
     from msu_latentafis_tpu_torch import cli
+    from msu_latentafis_tpu_torch.matcher.engine import LM_BUCKET, LT_BUCKET
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     from msu_latentafis_tpu_torch.templates import (
-        write_codebook, write_final_latent_template,
-        write_final_rolled_pq_template)
+        MatcherConstants, native_io, write_codebook,
+        write_final_latent_template, write_final_rolled_pq_template)
     from msu_latentafis_tpu_torch.utils.synthetic import (
         make_latent_template, make_rolled_template)
 
-    def to_pixels(t):           # writers quantize texture coords (x-24)/16
-        for tt in t.texture_template:
-            m = np.asarray(tt.minutiae, np.float64)
-            m[:, :2] = m[:, :2] * 16.0 + 24.0
-            tt.minutiae = m
-        return t
+    fresh = not native_io.library_path().exists()
+    t0 = time.perf_counter()
+    if native_io.load() is None:
+        raise AssertionError("the native gallery loader did not build")
+    log(f"[cli] native loader {native_io.library_path().name}: "
+        f"{'built at first use' if fresh else 'already built, loaded'} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     gdir = os.path.join(workdir, "gallery")
+    ldir = os.path.join(workdir, "latents")
     os.makedirs(gdir)
+    os.makedirs(ldir)
     cbf = os.path.join(workdir, "codebook.dat")
     write_codebook(cbf, cb)
-    lat = make_latent_template(rng, n_minu=48, n_tex=300)
-    latf = os.path.join(workdir, "latent0.dat")
-    mate_idx, big_idx = 37, 12
+    lats = [make_latent_template(rng, n_minu=m, n_tex=t)
+            for m, t in CLI_LATENTS]
+    # latent 0's three selected minutiae templates as three extractions of
+    # one print (copies of template 26, the one its synthetic mate copies),
+    # so the mate's three correspondence files all hold rows
+    for i in MatcherConstants.SELECTED_MINU_TEMPLATES[1:]:
+        lats[0].minu_template[i] = copy.deepcopy(lats[0].minu_template[
+            MatcherConstants.SELECTED_MINU_TEMPLATES[0]])
+    mate_of = {j: i for i, j in enumerate(CLI_MATES)}
     for j in range(64):
-        mated = j == mate_idx
+        lat = lats[mate_of[j]] if j in mate_of else None
         r = make_rolled_template(
-            rng, n_minu=1000 if j == big_idx else int(rng.integers(50, 97)),
-            n_tex=int(rng.integers(300, 449)),
-            mated_latent=lat if mated else None,
-            codebook=cb if mated else None)
+            rng, n_minu=1000 if j == CLI_BIG else int(rng.integers(50, 97)),
+            n_tex=int(rng.integers(300, 449)), mated_latent=lat,
+            codebook=cb if lat is not None else None)
         write_final_rolled_pq_template(os.path.join(gdir, f"r{j:03d}.dat"),
                                        to_pixels(r))
-    write_final_latent_template(latf, to_pixels(lat))
+    for i, lat in enumerate(lats):
+        write_final_latent_template(os.path.join(ldir, f"latent{i}.dat"),
+                                    to_pixels(lat))
+    with open(os.path.join(ldir, "latent9_empty.dat"), "wb"):
+        pass
+    latf = os.path.join(ldir, "latent0.dat")
+    mate_idx = CLI_MATES[0]
     cfg = os.path.join(workdir, "afis.config")
     with open(cfg, "w") as f:
         json.dump({"CodebookPath": cbf, "ScorePath": os.path.join(
             workdir, "scores_config_bf16"), "MatchBlockSize": 64,
             "ComputeDtype": "bfloat16"}, f)
+    dense = ("minutiae_match", "adc_rowmax", "texture_match")
     for label, extra, kernels in (
-            ("dense", [], ("minutiae_match", "adc_rowmax", "texture_match")),
+            ("dense", [], dense),
             ("rerank 16", ["--rerank", "16"],
              ("minu_screen", "adc_screen", "minutiae_match", "adc_rowmax",
               "texture_match")),
-            ("config bf16", ["--config", cfg],
-             ("minutiae_match", "adc_rowmax", "texture_match"))):
+            ("config bf16", ["--config", cfg], dense)):
         sdir = os.path.join(workdir, "scores_" + label.replace(" ", "_"))
         paths = [] if label == "config bf16" else ["-c", cbf, "-s", sdir]
         reset_counts()
+        t0 = time.perf_counter()
         rc = cli.main(["match", "-l", latf, "-g", gdir, *paths, *extra])
+        wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         note = rowmax_note()
         if rc != 0:
@@ -985,11 +1121,72 @@ def phase_cli(cb, rng, workdir):
             raise AssertionError(f"CLI ({label}) rank list wrong: {lines[:3]}")
         if min(counts[k] for k in kernels) <= 0:
             raise AssertionError(f"CLI ({label}) skipped a kernel: {counts}")
-        big = next((l for l in lines[1:] if f"r{big_idx:03d}," in l),
+        big = next((l for l in lines[1:] if f"r{CLI_BIG:03d}," in l),
                    "no rank of the 24 written")
+        corr = sorted(f for f in os.listdir(sdir) if f.startswith("corr"))
+        want = sorted(f"corrlatent0_{l.split(',')[0][len(str(r)):]}_{i}.csv"
+                      for r, l in enumerate(lines[1:], 1) for i in range(3))
+        mate_rows = [os.path.getsize(os.path.join(
+            sdir, f"corrlatent0_r{mate_idx:03d}_{i}.csv")) for i in range(3)]
+        if corr != want or len(corr) != 72 or min(mate_rows) <= 0:
+            raise AssertionError(f"CLI ({label}): {len(corr)} corr files "
+                                 f"(want the top-24's 72), the mate's sizes "
+                                 f"{mate_rows}")
         log(f"[cli] {label}: mate r{mate_idx:03d} at rank 1 ({lines[1]}), "
-            f"the 1,000-minutiae print r{big_idx:03d} at {big}, "
-            f"{len(lines) - 1} ranks written, launches {counts}; {note}")
+            f"the 1,000-minutiae print r{CLI_BIG:03d} at {big}, "
+            f"{len(lines) - 1} ranks and {len(corr)} correspondence files "
+            f"written (the mate's {mate_rows} bytes), {wall:.1f} s; "
+            f"launches {counts}; {note}")
+    # -ldir: every latent against the gallery in shape buckets
+    sdir = os.path.join(workdir, "scores_ldir")
+    reset_counts()
+    t0 = time.perf_counter()
+    tdir = os.path.join(workdir, "trace_ldir")
+    rc = cli.main(["match", "-ldir", ldir, "-g", gdir, "-c", cbf, "-s",
+                   sdir, "--trace", tdir])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if rc != 0 or min(counts[k] for k in dense) <= 0:
+        raise AssertionError(f"-ldir returned {rc}, launches {counts}")
+    with open(os.path.join(tdir, "trace.json")) as f:
+        traced = [e["name"] for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    traced = {k: sum(k in n for n in traced) for k in
+              ("minutiae_match_kernel", "texture_match_kernel")}
+    if min(traced.values()) <= 0:
+        raise AssertionError(f"-ldir --trace: the trace misses a match "
+                             f"kernel: {traced}")
+    with open(os.path.join(sdir, "latent9_empty.csv")) as f:
+        if f.read() != "0\n":
+            raise AssertionError("-ldir: the empty latent's file is not 0")
+    buckets = {(-(-m // LM_BUCKET), -(-t // LT_BUCKET))
+               for m, t in CLI_LATENTS}
+    for i, j in enumerate(CLI_MATES):
+        with open(os.path.join(sdir, f"latent{i}.csv")) as f:
+            rows = [l.split(",") for l in f.read().splitlines()]
+        order = sorted(range(len(rows)), key=lambda k: -float(rows[k][1]))
+        if len(rows) != 64 or rows[order[0]][0] != f"r{j:03d}" or not \
+                float(rows[order[0]][1]) > float(rows[order[1]][1]):
+            raise AssertionError(f"-ldir: latent {i}'s mate r{j:03d} not at "
+                                 f"rank 1: {rows[order[0]]}, "
+                                 f"{rows[order[1]]}")
+    log(f"[cli] -ldir: {len(CLI_LATENTS)} latents in {len(buckets)} shape "
+        f"buckets x 64 entries, {wall:.1f} s; every mate at rank 1, the "
+        f"empty latent's file 0; launches {counts}; --trace's kernel events "
+        f"{traced}")
+    check_native_loader(cb, gdir, "phase 2's gallery")
+    big_dir = os.path.join(workdir, "gallery_1024")
+    os.makedirs(big_dir)
+    t0 = time.perf_counter()
+    for j in range(LOADER_G):
+        r = make_rolled_template(rng, n_minu=int(rng.integers(20, 97)),
+                                 n_tex=int(rng.integers(100, 449)))
+        write_final_rolled_pq_template(os.path.join(big_dir,
+                                                    f"g{j:04d}.dat"),
+                                       to_pixels(r))
+    log(f"[cli] wrote {LOADER_G} rolled .dat files in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_native_loader(cb, big_dir, "a second gallery")
 
 
 def phase_engine(engine, cb, rng, card):
@@ -1005,8 +1202,13 @@ def phase_engine(engine, cb, rng, card):
                                           both_layouts=True)
     lats, mates = make_latents(rng, N_LATENTS, cb)
     positions = [int(GALLERY_G * f) for f in (0.075, 0.35, 0.61, 0.98)]
+    # list_to_list's second bucket: latents of another shape, their mates
+    # in the same gallery (impostors to the four above)
+    xlats, xmates = make_latents(rng, N_LATENTS, cb, Lm=32, Lt=200)
+    xpositions = [int(GALLERY_G * f) for f in (0.2, 0.45, 0.7, 0.9)]
     for g in (gal, codes):
         plant_gallery_entries(g, engine, mates, positions)
+        plant_gallery_entries(g, engine, xmates, xpositions)
     torch.cuda.synchronize()
     log(f"[engine] gallery {GALLERY_G} x (Rm 96, Rt 448, D 96) built on the "
         f"card in {time.perf_counter() - t0:.2f} s "
@@ -1058,7 +1260,46 @@ def phase_engine(engine, cb, rng, card):
             parts.setdefault(name, []).append((r, n))
     rec = {name: per_launch(p) for name, p in parts.items()}
     check_records("kernels, dense path (per launch over one call)", rec)
+    list_to_list_check(engine, gal, lats + xlats, positions + xpositions,
+                       card)
     return counts, rec, (gal, codes), lats, mates, positions, scores
+
+
+def list_to_list_check(engine, gal, lats, positions, card):
+    """-ldir's engine path at the gallery: list_to_list over latents of two
+    shapes (buckets of Lm by 32, Lt by 128, batches of 8): every mate at
+    rank 1, and every row equal to that latent's one_to_list row bit for
+    bit (the kernels equal their plain versions bit for bit, and padding
+    slots add +0 to the plain versions' index-order sums)."""
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.matcher.engine import LM_BUCKET, LT_BUCKET
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    buckets = {(l.minu_des.shape[0], -(-int(l.minu_n.max()) // LM_BUCKET),
+                -(-int(l.tex_n) // LT_BUCKET)) for l in lats}
+    reset_counts()
+    t0 = time.perf_counter()
+    res = engine.list_to_list(lats, gal)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    solo = [engine.one_to_list(l, gal).scores for l in lats]
+    solo_s = time.perf_counter() - t0
+    diffs = [float(np.abs(r.scores - s).max()) for r, s in zip(res, solo)]
+    ranks = [int(np.argmax(r.scores)) == p for r, p in zip(res, positions)]
+    if len(buckets) < 2 or not all(ranks) or any(
+            not np.array_equal(r.scores, s) for r, s in zip(res, solo)):
+        raise AssertionError(f"list_to_list: buckets {buckets}, mates at "
+                             f"rank 1 {ranks}, max |row - one_to_list| "
+                             f"{diffs}")
+    if min(counts[k] for k in DENSE_KERNELS) <= 0:
+        raise AssertionError(f"list_to_list skipped a kernel: {counts}")
+    log(f"[list_to_list] {len(lats)} latents in {len(buckets)} buckets x "
+        f"{gal.n_real} entries: {wall:.3f} s ({len(lats) / wall:.2f} "
+        f"latents/s; one_to_list one at a time {solo_s:.3f} s) on {card}; "
+        f"every mate at rank 1, every row == one_to_list bit for bit; "
+        f"launches {counts}")
 
 
 def mate_at_rank1(idx, exact, positions, label):
@@ -1829,15 +2070,29 @@ def phase_scripts(engine, card):
 
     p = h1p.make_inputs(np.random.default_rng(0), dev)
     NP, K = p["lx"].shape
+    plan = ops.h1_probe_plan(K, p["lx"].device.index)
+    emit(f"h1 probe plan at K {K}: {plan} (one set per block; "
+         f"{plan['blocks_per_sm']} blocks an SM on "
+         f"{torch.cuda.get_device_properties(dev).multi_processor_count} "
+         f"SMs)")
     parts = []
     for v in ops.H1_VARIANTS:
         r = hold(lambda v=v: ops.h1_probe(**p, variant=v),
                  by_slices(ops.h1_probe_plain, dict(p, variant=v), 512, NP,
-                           {k: 0 for k in p}, 0), None, 5)
-        r["bound"] = bound(30.0 * float((p["vf"].sum(1) ** 2).sum()),
-                           nbytes(*p.values()) + r["out_bytes"])
+                           {k: 0 for k in p}, 0), None, 5, exact=True)
+        pairs, roots, band = h1_work(p, v)
+        r["bound"] = h1_bound(pairs, roots, band, nbytes(*p.values())
+                              + r["out_bytes"])
+        old = bound(30.0 * float((p["vf"].sum(1) ** 2).sum()),
+                    nbytes(*p.values()) + r["out_bytes"])
         check_records(f"kernels, h1 probe {v} ({NP} sets of K {K})",
                       {f"h1_probe {v}": r})
+        emit(f"h1 probe {v}: {pairs:.0f} valid unordered pairs, {roots} "
+             f"square roots needed, {band} in the band 5 < dist < 30; "
+             f"bound {r['bound'][0]:.4f} ms (the larger of FP32 "
+             f"{r['bound'][3]:.4f} and MUFU {r['bound'][4]:.4f} ms; the "
+             f"row's bound); the old bound on "
+             f"all ordered pairs {old[0]:.4f} ms")
         parts.append((r, 1))
     rec["h1_probe"] = per_launch(parts)
     y = torch.empty_like(x)

@@ -1,7 +1,7 @@
 """Typed configuration, compatible with the reference's ``afis.config``.
 
-The port's own copy of the JAX package's ``AfisConfig`` and
-``find_config``: a flat JSON with the reference's key names (model, data
+The port's own copy of the JAX package's ``AfisConfig`` (with ``save``)
+and ``find_config``: a flat JSON with the reference's key names (model, data
 and score paths) plus the matcher's knobs. Keys this class does not know
 are ignored, so one deployment's file serves both packages. The matcher
 reads ``CodebookPath``, ``ScorePath``, ``MatchBlockSize`` and
@@ -45,6 +45,12 @@ class AfisConfig:
             raw = json.load(f)
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in raw.items() if k in known})
+
+    def save(self, path: str) -> None:
+        """Every field as a 2-space indented JSON object, in field order:
+        the bytes the JAX package's ``AfisConfig.save`` writes."""
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
 
 
 def find_config(start: Optional[str] = None) -> Optional[str]:

@@ -1,9 +1,11 @@
 """Gallery-scale matching engine (PyTorch): dense and screen-then-rerank.
 
 Counterpart of the JAX package's ``MatchEngine`` (``matcher/engine.py``:
-``load_gallery``, ``_match_all``, ``one_to_list``, ``_screen_all``,
-``match_scores_batch_reranked``, ``one_to_list_reranked``). The whole
-gallery lives on the device as dense padded tensors:
+``load_gallery``, ``_match_all``, ``one_to_list``, ``list_to_list``,
+``one_to_one_all_templates``, ``_screen_all``,
+``match_scores_batch_reranked``, ``one_to_list_reranked``; and
+``write_corr_files``). The whole gallery lives on the device as dense
+padded tensors:
 
 - dense exact path, block by block: minutiae-template scores from the
   ``minutiae_match`` kernel; texture scores from ``adc_rowmax`` (or
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 
 from ..templates.data_model import MatcherConstants as MC
-from ..templates.packing import PackedGallery, PackedLatent
+from ..templates.packing import (PackedGallery, PackedLatent, pack_gallery,
+                                 pack_latent, repad_latent)
 from .graph_filter import coord_pack
 from .kernels import ops
 from .texture_match import decode_pq
@@ -48,6 +51,10 @@ SCREEN_CHUNK = 16384     # gallery entries per screen launch (rounded down to
 #                          state, so only the validity masks and the
 #                          screen's two aug planes (~30 MB each at Rt 448)
 #                          bound the chunk
+LM_BUCKET = 32           # list_to_list pads latents to multiples of these
+LT_BUCKET = 128          # (minutiae, texture minutiae) slots, the JAX
+#                          engine's buckets, so that a batch has one shape
+MAX_BATCH = 8            # latents per list_to_list batch
 
 
 @dataclasses.dataclass
@@ -529,6 +536,66 @@ class MatchEngine:
         scores = self.match_scores(latent, gallery)[:gallery.n_real]
         return MatchResult(scores=scores.cpu().numpy(), names=gallery.names)
 
+    def one_to_one_all_templates(self, latent, rolled) -> np.ndarray:
+        """Unfused score vector for ONE latent / rolled Template pair: every
+        latent minutiae template against rolled minutiae template 0, then
+        every latent texture template against rolled texture template 0
+        (One2One_matching_all_templates, matcher.cpp:339-374; NumPy spec:
+        reference_impl.one2one_all_templates_scores), through
+        ``_match_all(components=True)``. Texture coordinates are taken as
+        read from final ``.dat`` files, which hold them quantized."""
+        import copy
+        n_minu = len(latent.minu_template)
+        n_tex = len(latent.texture_template)
+        out = np.zeros((n_minu + n_tex,), np.float32)
+        if (n_minu <= 0 and n_tex <= 0) or (
+                not rolled.minu_template and not rolled.texture_template):
+            return out
+        gal = self.load_gallery(pack_gallery([rolled], self.codebook,
+                                             names=["rolled"]))
+        for ti in range(max(n_tex, 1)):
+            lt = latent
+            if ti > 0:
+                lt = copy.copy(latent)
+                lt.texture_template = latent.texture_template[ti:ti + 1]
+            packed = pack_latent(lt, selected=tuple(range(max(n_minu, 1))),
+                                 quantize_tex_xy=False)
+            s_minu, s_tex = self._match_all(self.latent_batch([packed]), gal,
+                                            components=True)
+            if ti == 0 and n_minu and rolled.minu_template:
+                out[:n_minu] = s_minu[0, :n_minu, 0].cpu().numpy()
+            if n_tex and rolled.texture_template:
+                out[n_minu + ti] = float(s_tex[0, 0])
+        return out
+
+    def list_to_list(self, latents: Sequence[PackedLatent],
+                     gallery: DeviceGallery) -> List[MatchResult]:
+        """Batch (-ldir) mode: every latent against the whole gallery
+        (List2List_matching, matcher.cpp:96-214), results in input order.
+
+        Latents are padded up to (LM_BUCKET, LT_BUCKET) multiples, grouped
+        by (T, Lm, Lt, D) and matched in batches of at most MAX_BATCH
+        through ``match_scores_batch``: the JAX engine's buckets, which
+        bound its compiles; here they give each batch the one shape that
+        ``latent_batch`` stacks."""
+        buckets: dict = {}
+        for i, lat in enumerate(latents):
+            blm = -(-max(int(lat.minu_n.max()), 1) // LM_BUCKET) * LM_BUCKET
+            blt = -(-max(int(lat.tex_n), 1) // LT_BUCKET) * LT_BUCKET
+            key = (lat.minu_des.shape[0], blm, blt, lat.minu_des.shape[2])
+            buckets.setdefault(key, []).append(
+                (i, repad_latent(lat, blm, blt)))
+        out: List[Optional[MatchResult]] = [None] * len(latents)
+        for _, group in sorted(buckets.items()):
+            for start in range(0, len(group), MAX_BATCH):
+                chunk = group[start:start + MAX_BATCH]
+                scores = self.match_scores_batch([l for _, l in chunk],
+                                                 gallery)
+                scores = scores[:, :gallery.n_real].cpu().numpy()
+                for (i, _), s in zip(chunk, scores):
+                    out[i] = MatchResult(scores=s, names=gallery.names)
+        return out  # type: ignore[return-value]
+
     def one_to_list_reranked(self, latent: PackedLatent,
                              gallery: DeviceGallery, m: int = 512,
                              **kw) -> MatchResult:
@@ -569,3 +636,28 @@ def write_rank_csv(path: str, result: MatchResult, top_k: int = 24) -> None:
         f.write("filename,score\n")
         for rank, (name, score) in enumerate(result.ranked(top_k), start=1):
             f.write(f"{rank}{name},{score}\n")
+
+
+def write_corr_files(latent, rolled, codebook: np.ndarray,
+                     prefix: str) -> List[str]:
+    """Write the surviving minutiae correspondences of one latent / rolled
+    pair as ``<prefix>_<i>.csv``, one per selected latent minutiae
+    template, rows ``lx,ly,rx,ry``: the reference's save_corr output for
+    the top-24 candidates (matcher.cpp:305-330, :405-406, :497-506), from
+    the NumPy spec (reference_impl.one2one_selected_scores).
+
+    ``latent`` / ``rolled`` are in-memory Templates; returns the files
+    written."""
+    from .reference_impl import one2one_selected_scores
+    out = one2one_selected_scores(latent, rolled, codebook, return_corr=True)
+    written: List[str] = []
+    if out is None:
+        return written
+    _, corrs = out
+    for i, corr in enumerate(corrs):
+        path = f"{prefix}_{i}.csv"
+        with open(path, "w") as f:
+            for lx, ly, rx, ry in corr:
+                f.write(f"{lx:g},{ly:g},{rx:g},{ry:g}\n")
+        written.append(path)
+    return written

@@ -36,6 +36,16 @@ def coord_pack(xy: torch.Tensor, ori: torch.Tensor) -> torch.Tensor:
                         torch.sin(ori)], dim=-1).contiguous()
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The square root rounded to nearest in x's type (f32), as the
+    kernels and XLA take it. PyTorch's f32 sqrt on the CPU is not: on an
+    AVX-512 host ~0.7% of roots land one ulp off, and which ones depends on
+    the call (so the plain versions differed from run to run). The f64
+    root rounded once to f32 is the correctly rounded f32 root (53 >=
+    2 * 24 + 2 bits); on CUDA it equals torch.sqrt's."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum along ``dim`` in index order, one rounding per term."""
     x = x.movedim(dim, 0)
@@ -84,11 +94,11 @@ def build_dist_H(lpack: torch.Tensor, rpack: torch.Tensor,
         dxl, dyl, dxr, dyr = dxl.abs(), dyl.abs(), dxr.abs(), dyr.abs()
         gate = gate & (dxl < DIST_LUT_N) & (dyl < DIST_LUT_N) \
             & (dxr < DIST_LUT_N) & (dyr < DIST_LUT_N)
-        d1 = 16.0 * torch.sqrt(dxl * dxl + dyl * dyl)
-        d2 = 16.0 * torch.sqrt(dxr * dxr + dyr * dyr)
+        d1 = 16.0 * sqrt_rn(dxl * dxl + dyl * dyl)
+        d2 = 16.0 * sqrt_rn(dxr * dxr + dyr * dyr)
     else:
-        d1 = torch.sqrt(dxl * dxl + dyl * dyl)
-        d2 = torch.sqrt(dxr * dxr + dyr * dyr)
+        d1 = sqrt_rn(dxl * dxl + dyl * dyl)
+        d2 = sqrt_rn(dxr * dxr + dyr * dyr)
     # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
     # product with its reciprocal, one rounding away from the kernel's x / 25
     H = torch.clamp((30.0 - (d1 - d2).abs()) / torch.full_like(d1, 25.0),
@@ -102,7 +112,7 @@ def _line_vec(x: torch.Tensor, y: torch.Tensor):
     dx, dy = _pairdiff(x), _pairdiff(y)
     r2 = dx * dx + dy * dy
     zero = r2 == 0.0
-    inv = 1.0 / torch.sqrt(torch.where(zero, torch.ones_like(r2), r2))
+    inv = 1.0 / sqrt_rn(torch.where(zero, torch.ones_like(r2), r2))
     return (torch.where(zero, torch.ones_like(r2), dx * inv),
             torch.where(zero, torch.zeros_like(r2), -dy * inv))
 

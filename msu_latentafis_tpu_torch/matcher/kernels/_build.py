@@ -53,7 +53,10 @@ SIGNATURES = {
     "afis_screen_t_bf16": [_P] * 3 + [_I] * 5 + [_P],
     "afis_screen_t_int8": [_P] * 4 + [_I] * 5 + [_P],
     "afis_screen_t_int8_plan": [_I],
-    "afis_h1_probe": [_P] * 6 + [_I] * 3 + [_P],
+    "afis_h1_probe": [_P] * 6 + [_I] * 5 + [_P],
+    "afis_h1_probe_occupancy": [_I],
+    "afis_h1_sqrt_check": [ctypes.c_uint, ctypes.c_uint, _P],
+    "afis_smem_attrs": [_P],
     "afis_legality_canary": [_P] * 2 + [_L] + [_I] * 2 + [_P],
     "afis_max_smem_optin": [],
     "afis_error_string": [_I],

@@ -70,7 +70,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..graph_filter import (coord_pack, filter_correspondences, seq_dots,
-                            seq_sum)
+                            seq_sum, sqrt_rn)
 from ..minutiae_match import (SENT as MINU_SENT, minutiae_similarity,
                               mutual_normalize, row_candidates)
 from ..texture_match import decode_pq
@@ -1283,14 +1283,14 @@ def _probe_dist(x, y, variant: str):
         q = s[:, :, None] * 1.0 + s[:, None, :] * 1.0
         q = q + (-2.0 * x)[:, :, None] * x[:, None, :]
         q = q + (-2.0 * y)[:, :, None] * y[:, None, :]
-        return torch.sqrt(torch.clamp(q, min=0.0))
+        return sqrt_rn(torch.clamp(q, min=0.0))
     if variant == "matmul":
         dx = x[:, :, None] * 1.0 + x[:, None, :] * -1.0
         dy = y[:, :, None] * 1.0 + y[:, None, :] * -1.0
     else:
         dx = x[:, :, None] - x[:, None, :]
         dy = y[:, :, None] - y[:, None, :]
-    return torch.sqrt(dx * dx + dy * dy)
+    return sqrt_rn(dx * dx + dy * dy)
 
 
 def h1_probe_plain(lx, ly, rx, ry, vf, variant: str = "bcast"):
@@ -1304,12 +1304,55 @@ def h1_probe_plain(lx, ly, rx, ry, vf, variant: str = "bcast"):
     return seq_sum(seq_sum(h1 * gate, dim=2), dim=1)
 
 
+H1_THREADS = 256          # threads of a probe block, one set per block
+H1_MAX_K = 1024           # csrc/h1_probe.cu kMaxK
+H1_TARGET_BLOCKS = 3      # probe blocks an SM should hold
+# H100: shared memory per SM, reserved per block, opt-in limit per block
+H100_SMEM = (233472, 1024, 232448)
+
+
+def h1_plan(K: int, smem: Tuple[int, int, int] = H100_SMEM) -> dict:
+    """The probe's launch plan at K slots a set, from the card's shared
+    memory (per SM, reserved per block, opt-in limit per block): one set
+    per block of ``H1_THREADS`` threads. The valid slots (and one spare)
+    take 32 bytes each; a strip of the upper triangle's 2 x 2 tiles takes
+    ``budget`` floats (4 a tile): the whole triangle where a third of the
+    SM holds it, else what that third leaves, at least one tile row.
+    ``smem_bytes`` is what csrc/h1_probe.cu's smem_need asks for."""
+    per_sm, reserved, optin = smem
+    slots = (K + 2) // 2 * 2
+    fixed = slots * 32 + 4 * (H1_THREADS // 32)
+    share = min(optin, per_sm // H1_TARGET_BLOCKS - reserved)
+    T = (K + 1) // 2
+    budget = min(2 * T * (T + 1), (share - fixed) // 16 * 4)
+    budget = max(budget, 4 * (slots // 2))
+    return dict(threads=H1_THREADS, sets_per_block=1, budget=budget,
+                smem_bytes=fixed + 4 * budget)
+
+
+@functools.lru_cache(maxsize=None)
+def h1_probe_plan(K: int, device_index: int) -> dict:
+    """``h1_plan`` on the card's own shared memory, with the blocks per
+    SM the occupancy query grants it."""
+    with torch.cuda.device(device_index):
+        lib = _build.load()
+        attrs = (ctypes.c_int * 3)()
+        _build.check(lib.afis_smem_attrs(attrs), "h1_probe plan")
+        plan = h1_plan(K, tuple(attrs))
+        plan["blocks_per_sm"] = int(lib.afis_h1_probe_occupancy(
+            plan["smem_bytes"]))
+    return plan
+
+
 def h1_probe(lx: torch.Tensor, ly: torch.Tensor, rx: torch.Tensor,
              ry: torch.Tensor, vf: torch.Tensor,
              variant: str = "bcast") -> torch.Tensor:
     """The H1-build probe over NP sets of K slots: lx, ly, rx, ry, vf
     [NP, K] f32 -> [NP] f32, the distances formed as ``variant`` (bcast,
-    matmul: equal bit for bit; gram: not exact)."""
+    matmul: equal bit for bit; gram: not exact). The kernel forms each
+    unordered pair of valid slots once, in 2 x 2 tiles, and equals the
+    plain version bit for bit (csrc/h1_probe.cu); K <= ``H1_MAX_K`` on
+    the card."""
     NP, K = lx.shape
     dev = lx.device
     for name, t in (("lx", lx), ("ly", ly), ("rx", rx), ("ry", ry),
@@ -1320,10 +1363,14 @@ def h1_probe(lx: torch.Tensor, ly: torch.Tensor, rx: torch.Tensor,
                          f"{H1_VARIANTS}")
     if not _is_cuda(dev):
         return h1_probe_plain(lx, ly, rx, ry, vf, variant)
+    if K > H1_MAX_K:
+        raise ValueError(f"h1_probe: K {K} > {H1_MAX_K}")
+    plan = h1_probe_plan(K, dev.index)
     out = torch.empty((NP,), dtype=torch.float32, device=dev)
     err = _build.load().afis_h1_probe(
         *(t.data_ptr() for t in (lx, ly, rx, ry, vf, out)), NP, K,
-        H1_VARIANTS.index(variant), _stream(dev))
+        H1_VARIANTS.index(variant), plan["budget"], plan["smem_bytes"],
+        _stream(dev))
     _build.check(err, "h1_probe")
     h1_probe.launches += 1
     return out

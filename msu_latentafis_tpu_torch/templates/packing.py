@@ -143,6 +143,35 @@ def pack_latent(template: Template,
                         tex_ori=tex_ori, tex_n=tex_n, name=name)
 
 
+def repad_latent(lat: PackedLatent, lm: int, lt: int) -> PackedLatent:
+    """Re-pad a PackedLatent's minutiae/texture axes to exactly (lm, lt)
+    slots (shrinking only ever drops padding — valid counts are preserved,
+    callers must pick lm >= max(minu_n), lt >= tex_n)."""
+    assert lm >= int(lat.minu_n.max()) and lt >= int(lat.tex_n), \
+        (lm, lt, lat.minu_n, lat.tex_n)
+
+    def fit(a: np.ndarray, axis: int, n: int) -> np.ndarray:
+        if a.shape[axis] == n:
+            return a
+        if a.shape[axis] > n:
+            return np.ascontiguousarray(np.take(a, np.arange(n), axis=axis))
+        pad = [(0, 0)] * a.ndim
+        pad[axis] = (0, n - a.shape[axis])
+        return np.pad(a, pad)
+
+    return PackedLatent(
+        minu_des=fit(lat.minu_des, 1, lm), minu_xy=fit(lat.minu_xy, 1, lm),
+        minu_ori=fit(lat.minu_ori, 1, lm), minu_n=lat.minu_n,
+        tex_des=fit(lat.tex_des, 0, lt), tex_xy=fit(lat.tex_xy, 0, lt),
+        tex_ori=fit(lat.tex_ori, 0, lt), tex_n=lat.tex_n, name=lat.name)
+
+
+def codeword_sqnorm(codebook: np.ndarray) -> np.ndarray:
+    """[S, C] squared norms of the codebook's sub-codewords (f64 sums)."""
+    return np.sum(np.asarray(codebook, np.float64) ** 2,
+                  axis=2).astype(np.float32)
+
+
 def pack_rolled_entry(template: Template, codebook_sqnorm: Optional[np.ndarray],
                       des_dim: int) -> Tuple[np.ndarray, ...]:
     """Extract (minu_des, minu_xy, minu_ori, n, codes, xy, ori, tn) raw
@@ -181,7 +210,7 @@ def pack_gallery(templates: Sequence[Template],
     (padding entries have zero counts and never win the top-K).
     """
     n_subs, n_clusters, sub_dim = codebook.shape
-    cw_sqnorm = np.sum(np.asarray(codebook, np.float64) ** 2, axis=2).astype(np.float32)
+    cw_sqnorm = codeword_sqnorm(codebook)
 
     raw = []
     for t in templates:

@@ -28,8 +28,17 @@ engine = MatchEngine(cb, block_size=1, device="cpu")
 score = float(engine.match_scores(packed[0], engine.load_gallery(mates))[0])
 assert score > 50.0, score
 for name in ("config", "scripts.exp_screen_mfu",
-             "scripts.microbench_h1_probe"):
+             "scripts.microbench_h1_probe", "matcher.reference_impl",
+             "templates.native_io", "utils.timing", "utils.logging",
+             "scripts.loader_bench", "scripts.h1_phases"):
     assert "msu_latentafis_tpu_torch." + name in sys.modules, name
+from msu_latentafis_tpu_torch.utils.logging import score_stats
+from msu_latentafis_tpu_torch.utils.timing import PhaseTimer
+timer = PhaseTimer()
+with timer.phase("list_to_list"):
+    res = engine.list_to_list(packed, engine.load_gallery(mates))
+assert float(res[0].scores[0]) == score
+assert score_stats(res[0].scores)["n"] == 1 and "list_to_list" in timer.pretty()
 import torch
 from msu_latentafis_tpu_torch.config import load_config
 assert load_config(None).ComputeDtype == "float32"

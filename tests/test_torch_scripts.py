@@ -489,6 +489,20 @@ def test_mma_peak_needs_the_card(capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def test_h1_phases_cuts_the_probe(capsys):
+    """scripts/h1_phases.py finds each cut's anchor in the probe's current
+    source once, and needs the card."""
+    from msu_latentafis_tpu_torch.matcher.kernels import _build
+    from msu_latentafis_tpu_torch.scripts import h1_phases
+    src = h1_phases.instrument((_build.CSRC / "h1_probe.cu").read_text())
+    for name in h1_phases.CUTS:
+        assert src.count(f"{name}\n") >= 1, name
+    assert {m for ms in h1_phases.COPIES.values() for m in ms} == \
+        set(h1_phases.CUTS)
+    assert h1_phases.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 def test_stage_clocks_instruments_the_kernels(tmp_path):
     """scripts/stage_clocks.py finds every anchor in the kernels' current
     sources: one stamp per stage of both match kernels, of the filter body,
