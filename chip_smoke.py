@@ -107,7 +107,26 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      ops.screen_t_tol; screen_t_int8, on the tensor cores, bit for bit);
      the canary's grid at its timed plan (from the profiler's trace), and
      the canary, copy_ and clone profiled (host time per call beside
-     device time per launch).
+     device time per launch);
+  11. the gallery build and the sharded match: 1,024 rolled and 8 latent
+     TF_C templates written from a seed (192-d descriptors, rolled prints
+     of 96 minutiae and 448 texture rows, latents of 28 minutiae templates
+     of 64 and 448 texture rows, a planted mate for each latent); CompNet
+     DR (seeded weights, random batch statistics) through
+     ``template_compression`` on the card and on the CPU (largest
+     difference against rtol / atol 1e-5), ``encode_pq`` of the card's DR
+     output on the card and on the CPU (the codes that differ counted, each
+     within the f32 expansion's rounding bound, ``ops.pq.code_flip_bound``;
+     final .dat bytes equal in every file without a differing code); the
+     card's final gallery read by the native loader, ``shard_gallery`` /
+     ``match_sharded`` at world size 1 over NCCL equal to
+     ``match_scores_batch`` bit for bit, ``topk_collective`` (k 24) equal
+     to the engine's stable ranking with every mate at rank 1; the same on
+     phase 3's gallery rebuilt at 16,384 entries, timed against
+     ``match_scores_batch`` in the same call and phase 3's number; then DR
+     and PQ of 4,480,000 device-resident rows (rows/s) and
+     ``train_codebook`` on 1,000,000 x 96 rows, 20 iterations, twice (the
+     same bits). One card: no run across cards is made.
 The kernels' JSON record takes each kernel's launches from the path that
 runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 6) and its numbers from the same path's shapes and data: means per launch
@@ -166,6 +185,19 @@ NOFMA_F32_FLOPS = PEAK_F32_FLOPS / 2
 PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
 PEAK_INT8_OPS = 1979e12      # H100 SXM int8 tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+# phase 11: the gallery build from intermediate (TF_C) templates and the
+# sharded match on its output
+ENROLL_ROLLED = 1024         # rolled TF_C templates written
+ENROLL_LATENTS = 8
+ENROLL_RM, ENROLL_RT = 96, 448   # a rolled print's minutiae / texture rows
+ENROLL_LM, ENROLL_LT = 64, 448   # a latent's
+ENROLL_T = 28                # latent minutiae templates: the matcher's three
+#                              selected ones (26, 2, 11) all hold minutiae
+DES_IN = 192                 # descriptor width before the DR
+DR_TOL = dict(rtol=1e-5, atol=1e-5)   # CompNet on the card vs the CPU
+ENROLL_ROWS = 10000 * 448    # DR and PQ rows timed: 10,000 rolled prints
+TRAIN_ROWS = 1000000         # train_codebook's rows (16 x 256, 20 steps)
+TOPK = 24
 MUFU_PER_SM = 16             # H100 special-function lanes per SM and clock
 SM_CLOCK_HZ = 1.98e9         # H100 SXM boost clock, at which the peaks hold
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -1262,7 +1294,8 @@ def phase_engine(engine, cb, rng, card):
     check_records("kernels, dense path (per launch over one call)", rec)
     list_to_list_check(engine, gal, lats + xlats, positions + xpositions,
                        card)
-    return counts, rec, (gal, codes), lats, mates, positions, scores
+    return (counts, rec, (gal, codes), lats, mates, positions, scores,
+            N_LATENTS / steady_s)
 
 
 def list_to_list_check(engine, gal, lats, positions, card):
@@ -2119,6 +2152,276 @@ def phase_scripts(engine, card):
     return {k: counts[k] for k in rec}, rec
 
 
+def write_tfc_gallery(rng, rdir: str, ldir: str) -> list:
+    """ENROLL_LATENTS latent and ENROLL_ROLLED rolled TF_C templates (the
+    intermediate format extraction writes), descriptors of DES_IN floats,
+    pixel coordinates; rolled print step * i + step // 3 (step =
+    ENROLL_ROLLED // ENROLL_LATENTS) is latent i's mate (its minutiae template a noisy copy of the
+    latent's selected template 26, its texture rows noisy copies of the
+    latent's). Returns the mates' positions."""
+    import numpy as np
+    from msu_latentafis_tpu_torch.templates import write_template
+    from msu_latentafis_tpu_torch.utils.synthetic import (
+        make_latent_template, make_rolled_template, random_descriptors)
+    os.makedirs(rdir)
+    os.makedirs(ldir)
+    step = ENROLL_ROLLED // ENROLL_LATENTS
+    mates = {step * i + step // 3: i for i in range(ENROLL_LATENTS)}
+    lats = [make_latent_template(rng, n_minu=ENROLL_LM, n_tex=ENROLL_LT,
+                                 des_dim=DES_IN, n_minu_templates=ENROLL_T)
+            for _ in range(ENROLL_LATENTS)]
+    for j in range(ENROLL_ROLLED):
+        lat = lats[mates[j]] if j in mates else None
+        t = make_rolled_template(rng, n_minu=ENROLL_RM, n_tex=ENROLL_RT,
+                                 des_dim=DES_IN, mated_latent=lat, noise=0.1)
+        mt, tt = t.minu_template[0], t.texture_template[0]
+        mt.minutiae = np.column_stack([mt.minutiae, np.ones(ENROLL_RM)])
+        des = random_descriptors(rng, ENROLL_RT, DES_IN)
+        if lat is not None:
+            src = lat.texture_template[0]
+            k = min(ENROLL_RT, src.n_minutiae)
+            d = src.des[:k] + 0.05 * rng.standard_normal(
+                (k, DES_IN)).astype(np.float32)
+            des[:k] = d / np.linalg.norm(d, axis=1, keepdims=True) * 1.73
+        tt.des = des
+        tt.minutiae = np.asarray(tt.minutiae)[:, :3]
+        write_template(os.path.join(rdir, f"r{j:05d}.dat"), to_pixels(t),
+                       is_latent=False)
+    for i, t in enumerate(lats):         # after the mates copied them
+        write_template(os.path.join(ldir, f"l{i}.dat"), to_pixels(t),
+                       is_latent=True)
+    return sorted(mates, key=mates.get)
+
+
+def template_des(t) -> list:
+    """Every descriptor matrix of a template, minutiae then texture."""
+    return [x.des for x in t.minu_template + t.texture_template]
+
+
+def check_topk(scores, want, k: int, mesh, positions, label: str) -> None:
+    """topk_collective on each latent's sharded scores == the engine's
+    stable ranking of its scores, mate at rank 1."""
+    import torch
+    from msu_latentafis_tpu_torch.parallel import topk_collective
+    for i, p in enumerate(positions):
+        v, idx = topk_collective(scores[i], k, mesh)
+        sv, si = torch.sort(want[i], descending=True, stable=True)
+        if not (torch.equal(idx, si[:k]) and torch.equal(v, sv[:k])):
+            raise AssertionError(f"{label} latent {i}: top-{k} != the "
+                                 f"engine's stable ranking")
+        if int(idx[0]) != p:
+            raise AssertionError(f"{label} latent {i}: mate at {p} not at "
+                                 f"rank 1 (rank-1 entry {int(idx[0])})")
+
+
+def phase_enroll(engine, cb, rng, card, workdir, lats, mates, positions,
+                 dense_lps):
+    """Phase 11: the gallery build (TF_C -> CompNet DR -> PQ -> final .dat)
+    on the card and on the CPU, the sharded match at world size 1 over the
+    device's backend on that gallery and at GALLERY_G entries, and the
+    build's throughput at enrollment scale."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    from msu_latentafis_tpu_torch.models.compnet import compress_rows
+    from msu_latentafis_tpu_torch.ops.pq import (code_flip_bound, pq_codes,
+                                                 train_codebook)
+    from msu_latentafis_tpu_torch.parallel import (make_mesh, match_sharded,
+                                                   shard_gallery)
+    from msu_latentafis_tpu_torch.parallel.distributed import backend_for
+    from msu_latentafis_tpu_torch.pipeline import ModelBundle
+    from msu_latentafis_tpu_torch.pipeline.postprocess import (
+        encode_pq, template_compression)
+    from msu_latentafis_tpu_torch.templates import (
+        pack_latent, read_final_template, read_template, write_codebook)
+    from msu_latentafis_tpu_torch.templates.native_io import \
+        pack_gallery_native
+    from msu_latentafis_tpu_torch.utils.synthetic import (
+        device_synthetic_gallery, plant_gallery_entries, random_compnet)
+
+    dev = engine.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    d = {k: os.path.join(workdir, k) for k in (
+        "tfc_r", "tfc_l", "dr_r", "dr_l", "dr_r_cpu", "dr_l_cpu", "dat_r",
+        "dat_r_cpu", "dat_l")}
+    t0 = time.perf_counter()
+    mate_pos = write_tfc_gallery(rng, d["tfc_r"], d["tfc_l"])
+    cb_path = os.path.join(workdir, "codebook.dat")
+    write_codebook(cb_path, cb)
+    log(f"[enroll] {ENROLL_ROLLED} rolled (Rm {ENROLL_RM}, Rt {ENROLL_RT}) "
+        f"and {ENROLL_LATENTS} latent ({ENROLL_T} minutiae templates of "
+        f"{ENROLL_LM}, Lt {ENROLL_LT}) TF_C templates, {DES_IN}-d, written "
+        f"in {time.perf_counter() - t0:.2f} s by the host of {card}")
+
+    # (a) DR and PQ on the card and on the CPU, from the same files; the
+    # PQ runs of both read the card's DR output
+    models = {"card": ModelBundle(random_compnet(11), device=dev),
+              "cpu": ModelBundle(random_compnet(11), device="cpu")}
+    secs = {}
+    for who, sfx in (("card", ""), ("cpu", "_cpu")):
+        t0 = time.perf_counter()
+        for kind, is_latent in (("r", False), ("l", True)):
+            template_compression(models[who], d[f"tfc_{kind}"],
+                                 d[f"dr_{kind}{sfx}"], is_latent=is_latent)
+        secs[f"dr_{who}"] = time.perf_counter() - t0
+    worst_abs, worst_rel, n_des = 0.0, 0.0, 0
+    for kind, is_latent in (("r", False), ("l", True)):
+        for name in sorted(os.listdir(d[f"dr_{kind}"])):
+            a, b = (read_template(os.path.join(d[f"dr_{kind}{sfx}"], name),
+                                  is_latent=is_latent) for sfx in ("", "_cpu"))
+            for x, y in zip(template_des(a), template_des(b)):
+                diff = np.abs(x - y)
+                worst_abs = max(worst_abs, float(diff.max()))
+                worst_rel = max(worst_rel, float((diff / (
+                    DR_TOL["atol"] + DR_TOL["rtol"] * np.abs(y))).max()))
+                n_des += x.size
+    log(f"[enroll] DR (CompNet {DES_IN} -> 96, seeded weights, random batch "
+        f"statistics): card {secs['dr_card']:.2f} s, CPU "
+        f"{secs['dr_cpu']:.2f} s; largest |card - CPU| {worst_abs:.3e} over "
+        f"{n_des} values, {worst_rel:.3f} of the bound (rtol "
+        f"{DR_TOL['rtol']} / atol {DR_TOL['atol']}) on {card}")
+    if worst_rel > 1.0:
+        raise AssertionError("DR on the card outside its bound of the CPU's")
+    for who, out, where in (("card", "dat_r", dev), ("cpu", "dat_r_cpu",
+                                                     "cpu")):
+        t0 = time.perf_counter()
+        encode_pq(d["dr_r"], d[out], "rolled", cb_path, device=where)
+        secs[f"pq_{who}"] = time.perf_counter() - t0
+    encode_pq(d["dr_l"], d["dat_l"], "latent", device=dev)
+    n_codes, gaps, equal_files, flip_files = 0, [], 0, 0
+    for name in sorted(os.listdir(d["dat_r"])):
+        fa, fb = (os.path.join(d[k], name) for k in ("dat_r", "dat_r_cpu"))
+        ca, cc = (read_final_template(f, kind="rolled").texture_template[0]
+                  .des for f in (fa, fb))
+        n_codes += ca.size
+        if np.array_equal(ca, cc):
+            with open(fa, "rb") as f, open(fb, "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"{name}: codes equal, bytes not")
+            equal_files += 1
+            continue
+        flip_files += 1
+        src = read_template(os.path.join(d["dr_r"], name), is_latent=False)
+        gaps.append(code_flip_bound(src.texture_template[0].des, cb, ca, cc))
+    gaps = np.concatenate(gaps) if gaps else np.zeros((0, 2))
+    log(f"[enroll] PQ encode (16 x 256 x 6): card {secs['pq_card']:.2f} s, "
+        f"CPU {secs['pq_cpu']:.2f} s; codes differing card / CPU "
+        f"{len(gaps)} of {n_codes}"
+        + (f" (largest gap {gaps[:, 0].max():.3e}, each within its f32 "
+           f"expansion bound, largest bound {gaps[:, 1].max():.3e})"
+           if len(gaps) else "")
+        + f"; final .dat bytes equal in all {equal_files} files without a "
+        f"differing code ({flip_files} with one) on {card}")
+    if len(gaps) and not np.all(gaps[:, 0] <= gaps[:, 1]):
+        raise AssertionError("a code differs beyond the expansion's bound")
+
+    # (b) the sharded match on the card's final gallery, then at GALLERY_G
+    t0 = time.perf_counter()
+    packed = pack_gallery_native(d["dat_r"], cb)
+    if packed is None:
+        raise AssertionError("the native gallery loader did not build")
+    load_s = time.perf_counter() - t0
+    plats = [pack_latent(read_final_template(os.path.join(d["dat_l"],
+                                                          f"l{i}.dat")),
+                         minu_cap=ENROLL_LM, tex_cap=ENROLL_LT,
+                         quantize_tex_xy=False)
+             for i in range(ENROLL_LATENTS)]
+    backend = backend_for(dev)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(device_type=dev.type)
+        gal = shard_gallery(engine, packed, mesh)
+        reset_counts()
+        scores = match_sharded(engine, plats, gal, mesh)
+        counts = ops.launch_counts()
+        if min(counts[k] for k in DENSE_KERNELS) <= 0:
+            raise AssertionError(f"sharded match skipped a kernel: {counts}")
+        want = engine.match_scores_batch(plats, engine.load_gallery(packed))
+        if not torch.equal(scores, want):
+            raise AssertionError("sharded scores != match_scores_batch")
+        check_topk(scores, want, TOPK, mesh, mate_pos, "[enroll]")
+        log(f"[enroll] sharded match, world size 1 over {backend}: "
+            f"{ENROLL_LATENTS} latents x {packed.size} entries (native "
+            f"loader {load_s:.3f} s) == match_scores_batch bit for bit, "
+            f"top-{TOPK} == the engine's stable ranking, every mate at rank "
+            f"1; launches {counts} on {card}")
+
+        big = device_synthetic_gallery(engine, GALLERY_G, seed=2)
+        plant_gallery_entries(big, engine, mates, positions)
+        sync()
+        runs = []
+        for fn in (lambda: match_sharded(engine, lats, big, mesh),
+                   lambda: engine.match_scores_batch(lats, big)) * 2:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            runs.append((out, time.perf_counter() - t0, ops.launch_counts()))
+        if not all(torch.equal(runs[0][0], r[0]) for r in runs[1:]):
+            raise AssertionError("sharded scores at scale != the engine's")
+        if min(runs[0][2][k] for k in DENSE_KERNELS) <= 0:
+            raise AssertionError(f"sharded match skipped a kernel: "
+                                 f"{runs[0][2]}")
+        check_topk(runs[0][0], runs[1][0], TOPK, mesh, positions,
+                   "[enroll scale]")
+        n = len(lats)
+        log(f"[enroll] sharded match at scale, world size 1 over {backend}: "
+            f"{n} latents x {GALLERY_G} entries: first {runs[0][1]:.3f} s, "
+            f"steady {runs[2][1]:.3f} s, {n / runs[2][1]:.2f} latents/s; "
+            f"match_scores_batch in the same call {runs[3][1]:.3f} s, "
+            f"{n / runs[3][1]:.2f} latents/s; phase 3's dense "
+            f"{dense_lps:.2f} latents/s; scores equal bit for bit, top-"
+            f"{TOPK} == the engine's, every mate at rank 1; launches "
+            f"{runs[0][2]} on {card}")
+        del big
+    finally:
+        dist.destroy_process_group()
+
+    # (c) the gallery build's throughput at enrollment scale, on the card
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((ENROLL_ROWS, DES_IN), generator=gen, device=dev)
+    net = models["card"].compnet
+    compress_rows(net, x[:4096])
+    sync()
+    t0 = time.perf_counter()
+    y = compress_rows(net, x)
+    sync()
+    dr_s = time.perf_counter() - t0
+    del x
+    cbt = torch.as_tensor(np.asarray(cb, np.float32), device=dev)
+    pq_codes(y[:4096], cbt)
+    sync()
+    t0 = time.perf_counter()
+    codes = pq_codes(y, cbt)
+    sync()
+    pq_s = time.perf_counter() - t0
+    if not (torch.isfinite(y).all() and codes.shape == (ENROLL_ROWS, 16)):
+        raise AssertionError("DR / PQ at scale: bad output")
+    del y, codes
+    t = torch.randn((TRAIN_ROWS, 96), generator=gen, device=dev)
+    train = (t / t.norm(dim=1, keepdim=True) * 1.73).cpu().numpy()
+    del t
+    books, train_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        books.append(train_codebook(train, device=dev))
+        train_s.append(time.perf_counter() - t0)
+    if not (np.isfinite(books[0]).all() and np.array_equal(*books)):
+        raise AssertionError("train_codebook: two runs differ")
+    log(f"[enroll] at enrollment scale: DR of {ENROLL_ROWS} rows "
+        f"({ENROLL_ROWS // 448} prints x 448) {dr_s:.3f} s, "
+        f"{ENROLL_ROWS / dr_s:.4g} rows/s; PQ encode of the same rows "
+        f"{pq_s:.3f} s, {ENROLL_ROWS / pq_s:.4g} rows/s (device-resident "
+        f"rows, f32, TF32 off); train_codebook {TRAIN_ROWS} x 96, 16 x 256, "
+        f"20 iterations: {train_s[0]:.3f} s and {train_s[1]:.3f} s, the same "
+        f"bits twice, on {card}")
+
+
 def launch_split(label, fn, sym=None, reps: int = 20) -> list:
     """Host time per call (the enqueue of ``reps`` back-to-back calls, no
     synchronize) and device time per launch (torch.profiler over another
@@ -2261,8 +2564,8 @@ def main() -> int:
         phase_cli(cb, rng, work)
     log(f"[phase 2] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts, rec, layouts, lats, mates, positions, dense = phase_engine(
-        engine, cb, rng, card)
+    counts, rec, layouts, lats, mates, positions, dense, dense_lps = \
+        phase_engine(engine, cb, rng, card)
     log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_serving(engine, layouts, lats, positions, dense)
@@ -2294,6 +2597,12 @@ def main() -> int:
     t0 = time.perf_counter()
     script_counts, script_rec = phase_scripts(engine, card)
     log(f"[phase 10] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_root) as work:
+        phase_enroll(engine, cb, rng, card, work, lats, mates, positions,
+                     dense_lps)
+    log(f"[phase 11] {time.perf_counter() - t0:.1f} s")
     # each kernel's launches and numbers on the main path that runs it: the
     # dense match (phase 3), 100,000-entry serving in its layout or with
     # normalize=True (phase 5), the standalone filter path (phase 6), the

@@ -1,0 +1,134 @@
+"""Descriptor dimensionality-reduction MLP (192 -> 96).
+
+Counterpart of the JAX package's ``models/compnet.py`` (after the
+reference implementation's extraction/models/net_compress.py:7-54):
+Linear + BatchNorm + LeakyReLU 0.2 input layer, one residual BasicBlock,
+Linear + BatchNorm output. The DR stage renormalizes each output row to
+||.|| = 1.73 (descriptor_DR.py:150-153): ``compress_descriptors``. The
+models run in eval mode, on the running statistics.
+
+``compnet_from_flax`` carries the JAX package's Flax variables over:
+a ``Dense`` kernel is [in, out], so it is transposed into
+``Linear.weight``; ``BatchNorm`` scale / bias / mean / var become weight /
+bias / running_mean / running_var, with Flax's eps 1e-5.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.pq import f32_matmul
+
+DES_NORM = 1.73
+BN_EPS = 1e-5            # flax.linen.BatchNorm's default epsilon
+COMPRESS_ROWS = 1 << 20  # rows per forward pass of compress_rows
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, dims: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dims, dims)
+        self.bn1 = nn.BatchNorm1d(dims, eps=BN_EPS)
+        self.fc2 = nn.Linear(dims, dims)
+        self.bn2 = nn.BatchNorm1d(dims, eps=BN_EPS)
+
+    def forward(self, x):
+        y = F.leaky_relu(self.bn1(self.fc1(x)), 0.2)
+        y = self.bn2(self.fc2(y))
+        return F.leaky_relu(y + x, 0.2)
+
+
+class CompNet(nn.Module):
+    def __init__(self, in_dims: int = 192, out_dims: int = 96):
+        super().__init__()
+        self.fc_in = nn.Linear(in_dims, out_dims)
+        self.bn_in = nn.BatchNorm1d(out_dims, eps=BN_EPS)
+        self.block = BasicBlock(out_dims)
+        self.fc_out = nn.Linear(out_dims, out_dims)
+        self.bn_out = nn.BatchNorm1d(out_dims, eps=BN_EPS)
+
+    def forward(self, x):
+        x = F.leaky_relu(self.bn_in(self.fc_in(x)), 0.2)
+        x = self.block(x)
+        return self.bn_out(self.fc_out(x))
+
+
+# Flax module path -> the CompNet submodule that takes its variables
+FLAX_NAMES = {
+    "Dense_0": "fc_in", "BatchNorm_0": "bn_in",
+    "BasicBlock_0/Dense_0": "block.fc1", "BasicBlock_0/BatchNorm_0": "block.bn1",
+    "BasicBlock_0/Dense_1": "block.fc2", "BasicBlock_0/BatchNorm_1": "block.bn2",
+    "Dense_1": "fc_out", "BatchNorm_1": "bn_out",
+}
+# Flax collection and leaf -> the torch parameter or buffer it becomes
+FLAX_LEAVES = {
+    ("params", "kernel"): "weight", ("params", "scale"): "weight",
+    ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v, np.float32)
+    return out
+
+
+def compnet_from_flax(variables: Mapping) -> CompNet:
+    """A CompNet in eval mode holding the JAX package's Flax variables
+    ``{"params": ..., "batch_stats": ...}`` (leaves as arrays). Raises on a
+    variable that no submodule takes or a submodule left without one."""
+    flat = _flatten(variables)
+    kernel = flat["params/Dense_0/kernel"]
+    net = CompNet(in_dims=kernel.shape[0], out_dims=kernel.shape[1])
+    state = {}
+    for flax_mod, torch_mod in FLAX_NAMES.items():
+        for (coll, leaf), name in FLAX_LEAVES.items():
+            key = f"{coll}/{flax_mod}/{leaf}"
+            if key not in flat:
+                continue
+            value = flat.pop(key)
+            state[f"{torch_mod}.{name}"] = torch.tensor(
+                value.T if leaf == "kernel" else value)
+    if flat:
+        raise ValueError(f"Flax variables with no CompNet counterpart: "
+                         f"{sorted(flat)}")
+    for name, buf in net.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            state[name] = buf
+    net.load_state_dict(state, strict=True)
+    return net.eval()
+
+
+def compress_rows(model: CompNet, x: torch.Tensor) -> torch.Tensor:
+    """DR f32 rows [N, in] on the model's device -> [N, out], each row
+    renormalized to DES_NORM; COMPRESS_ROWS at a time, in f32."""
+    out = torch.empty((x.shape[0], model.fc_out.out_features),
+                      dtype=torch.float32, device=x.device)
+    R = COMPRESS_ROWS
+    with torch.inference_mode(), f32_matmul():
+        for a in range(0, x.shape[0], R):
+            y = model(x[a:a + R])
+            out[a:a + R] = y / y.norm(dim=1, keepdim=True) * DES_NORM
+    return out
+
+
+def compress_descriptors(model: CompNet, des: np.ndarray) -> np.ndarray:
+    """DR a [N, 192] descriptor matrix -> [N, 96] on the model's device,
+    renormalized to 1.73 (descriptor_DR.extract_features + the renorm at
+    :150-153); [0, 96] for no rows. Rows are independent, so there is no
+    padding to the JAX package's batch of 128."""
+    if len(des) == 0:
+        return np.zeros((0, model.fc_out.out_features), np.float32)
+    device = next(model.parameters()).device
+    x = torch.as_tensor(np.asarray(des, np.float32), device=device)
+    return compress_rows(model, x).cpu().numpy()

@@ -3,6 +3,9 @@
 Byte-compatible with the reference's on-disk formats so templates and
 codebooks interoperate both ways:
 
+- **TF_C intermediate format** (written by extraction, consumed by the DR and
+  PQ stages): layout specified by the reference implementation's
+  extraction/template_2.py:610-727 (writer) and :730-839 (reader);
 - **Final ``.dat`` format** (written by the PQ stage, consumed by the
   matcher): 12 x int16 reserved header + the TF_C section layout, texture
   coordinates quantized ``(x - 24) / 16`` and texture descriptors kept
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import io
 import os
-from typing import List, Optional, Tuple, Union
+from typing import Optional, Union
 
 import numpy as np
 
@@ -64,6 +67,146 @@ class _Writer:
 
     def getvalue(self) -> bytes:
         return self._buf.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# Run-length mask codec (the reference implementation's
+# extraction/template.py:50-76)
+# ---------------------------------------------------------------------------
+
+def run_length_encode(mask: np.ndarray) -> np.ndarray:
+    """Column-major run lengths of a binary mask; first run is background."""
+    flat = np.asarray(mask).T.reshape(-1).astype(np.int64).copy()
+    flat[0] = 0
+    change = np.nonzero(flat[1:] != flat[:-1])[0] + 1
+    bounds = np.concatenate(([0], change, [flat.size]))
+    return np.diff(bounds)
+
+
+def run_length_decode(runs: np.ndarray, h: int, w: int) -> np.ndarray:
+    flat = np.zeros((h * w,), dtype=np.int64)
+    ends = np.cumsum(np.asarray(runs, dtype=np.int64))
+    for i in range(1, len(ends), 2):
+        flat[ends[i - 1]:ends[i]] = 1
+    return flat.reshape(w, h).T
+
+
+# ---------------------------------------------------------------------------
+# TF_C intermediate format
+# ---------------------------------------------------------------------------
+
+def write_template(fname: Union[str, os.PathLike], template: Optional[Template],
+                   is_latent: bool = True, save_mask: bool = False) -> None:
+    """Serialize to the TF_C intermediate format (the reference implementation's
+    extraction/template_2.py:610-727)."""
+    max_minu = MatcherConstants.MAX_MINU_PER_TEMPLATE * (2 if is_latent else 1)
+    w = _Writer()
+    if template is None or len(template.minu_template) == 0:
+        w.arr(_U16, [0, 0, 0, 0])
+        with open(fname, "wb") as f:
+            f.write(w.getvalue())
+        return
+
+    first = template.minu_template[0]
+    blkH = min(first.blkH, MatcherConstants.BLK_CLAMP)
+    blkW = min(first.blkW, MatcherConstants.BLK_CLAMP)
+    w.arr(_U16, [first.h, first.w, blkH, blkW])
+    w.scalar(_U8, len(template.minu_template))
+
+    for mt in template.minu_template:
+        minu = np.asarray(mt.minutiae) if mt.minutiae is not None else np.zeros((0, 4))
+        minu = minu[:max_minu]
+        n = len(minu)
+        w.scalar(_U16, n)
+        if n <= 0:
+            continue
+        w.arr(_U16, minu[:, 0])
+        w.arr(_U16, minu[:, 1])
+        w.arr(_F32, minu[:, 2])
+        w.arr(_F32, minu[:, 3])
+        des = _resolve_des(mt.des, n)
+        w.scalar(_U16, des.shape[1])
+        w.arr(_F32, des.reshape(-1))
+        oimg = np.asarray(mt.oimg, dtype=np.float32)[:blkH, :blkW]
+        w.arr(_F32, oimg.T.reshape(-1))  # stored column-major
+        if save_mask:
+            runs = run_length_encode(mt.mask)
+            w.scalar(_U16, len(runs))
+            w.arr(_U32, runs)
+
+    w.scalar(_U8, len(template.texture_template))
+    for tt in template.texture_template:
+        minu = np.asarray(tt.minutiae) if tt.minutiae is not None else np.zeros((0, 3))
+        minu = minu[:max_minu]
+        n = len(minu)
+        w.scalar(_U16, n)
+        if n <= 0:
+            continue
+        w.arr(_U16, minu[:, 0])
+        w.arr(_U16, minu[:, 1])
+        w.arr(_F32, minu[:, 2])
+        des = _resolve_des(tt.des, n)[:max_minu]
+        w.scalar(_U16, des.shape[1])
+        w.arr(_F32, des.reshape(-1))
+
+    with open(fname, "wb") as f:
+        f.write(w.getvalue())
+
+
+def read_template(fname: Union[str, os.PathLike], is_latent: bool = True) -> Optional[Template]:
+    """Parse the TF_C intermediate format (the reference
+    implementation's extraction/template_2.py:730-839).
+
+    The orientation field is stored column-major; a texture template with
+    no minutiae ends the parse; a truncated descriptor block leaves an
+    empty texture template and stops. The mask runs that
+    ``write_template(save_mask=True)`` writes are not read, as in the
+    reference's reader, so such a file does not read back (its next field
+    is parsed from the run count)."""
+    with open(fname, "rb") as f:
+        data = f.read()
+    r = _Reader(data)
+    template = Template()
+    h, wdt = r.scalar(_U16), r.scalar(_U16)
+    if h <= 0 or wdt <= 0:
+        return None
+    blkH = min(r.scalar(_U16), MatcherConstants.BLK_CLAMP)
+    blkW = min(r.scalar(_U16), MatcherConstants.BLK_CLAMP)
+    n_minu_templates = r.scalar(_U8)
+    for _ in range(n_minu_templates):
+        n = r.scalar(_U16)
+        if n <= 0:
+            continue
+        minu = np.zeros((n, 4), dtype=np.float64)
+        minu[:, 0] = r.arr(_U16, n)
+        minu[:, 1] = r.arr(_U16, n)
+        minu[:, 2] = r.arr(_F32, n)
+        minu[:, 3] = r.arr(_F32, n)
+        des_len = r.scalar(_U16)
+        des = r.arr(_F32, des_len * n).reshape(n, des_len).astype(np.float32)
+        oimg = r.arr(_F32, blkH * blkW).reshape(blkW, blkH).T.copy()
+        template.add_minu_template(MinuTemplate(
+            h=h, w=wdt, blkH=blkH, blkW=blkW, minutiae=minu, des=des,
+            oimg=oimg, mask=None))
+
+    n_tex = r.scalar(_U8)
+    for _ in range(n_tex):
+        n = r.scalar(_U16)
+        if n <= 0:
+            template.add_texture_template(TextureTemplate(h=h, w=wdt))
+            return template
+        ncols = 4 if is_latent else 3
+        minu = np.zeros((n, ncols), dtype=np.float64)
+        minu[:, 0] = r.arr(_U16, n)
+        minu[:, 1] = r.arr(_U16, n)
+        minu[:, 2] = r.arr(_F32, n)
+        des_len = r.scalar(_U16)
+        if r.remaining < 4 * des_len * n:
+            template.add_texture_template(TextureTemplate(h=h, w=wdt, minutiae=None, des=None))
+            break
+        des = r.arr(_F32, des_len * n).reshape(n, des_len).astype(np.float32)
+        template.add_texture_template(TextureTemplate(h=h, w=wdt, minutiae=minu, des=des))
+    return template
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.pq import pq_encode
 from ..templates.data_model import MinuTemplate, TextureTemplate, Template
 
 DES_NORM = 1.73  # post-DR descriptor norm (descriptor_DR.py:152)
@@ -54,17 +55,6 @@ def random_quantized_minutiae(rng: np.random.Generator, n: int,
     return m
 
 
-def pq_encode(des: np.ndarray, codebook: np.ndarray) -> np.ndarray:
-    """Nearest-codeword PQ encoding [N, S*d] -> uint8 codes [N, S]."""
-    n_subs, _, sub_dim = codebook.shape
-    x = np.asarray(des, np.float32).reshape(len(des), n_subs, sub_dim)
-    cb = np.asarray(codebook, np.float32)
-    d2 = (np.sum(x * x, axis=2)[:, :, None]
-          - 2.0 * np.einsum("nsd,scd->nsc", x, cb)
-          + np.sum(cb * cb, axis=2)[None])
-    return np.argmin(d2, axis=2).astype(np.uint8)
-
-
 def make_rolled_template(rng: np.random.Generator, n_minu: int = 60,
                          n_tex: int = 300, des_dim: int = 96,
                          n_subs: int = 16, h: int = 512, w: int = 512,
@@ -102,7 +92,8 @@ def make_rolled_template(rng: np.random.Generator, n_minu: int = 60,
         k = min(n_tex, src.n_minutiae)
         tex[:k] = np.asarray(src.minutiae)[:k, :4]
         if codebook is not None and k:
-            codes[:k] = pq_encode(np.asarray(src.des)[:k], codebook)
+            codes[:k] = pq_encode(np.asarray(src.des)[:k], codebook,
+                                  device="cpu")
     t.add_texture_template(TextureTemplate(h=h, w=w, minutiae=tex, des=codes))
     return t
 
@@ -278,3 +269,25 @@ def plant_gallery_entries(gallery, engine, packed_mates,
         big.index_copy_(0, pos, sm.to(big.dtype))
     for i, p in enumerate(positions):
         gallery.names[p] = packed_mates.names[i]
+
+
+def random_compnet(seed: int, in_dims: int = 192, out_dims: int = 96):
+    """A CompNet in eval mode with seeded weights and non-trivial batch
+    statistics (running means N(0, 0.1), variances U(0.05, 2), scales
+    U(0.5, 1.5)), drawn on the CPU from ``torch.Generator(seed)``."""
+    from ..models.compnet import CompNet
+    gen = torch.Generator().manual_seed(seed)
+    net = CompNet(in_dims, out_dims)
+    with torch.no_grad():
+        for name, t in net.state_dict().items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            if name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=gen) * 1.95 + 0.05)
+            elif name.endswith("running_mean") or name.endswith("bias"):
+                t.normal_(0.0, 0.1, generator=gen)
+            elif t.dim() == 2:                       # Linear weight
+                t.normal_(0.0, t.shape[1] ** -0.5, generator=gen)
+            else:                                     # BatchNorm scale
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+    return net.eval()

@@ -22,6 +22,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from msu_latentafis_tpu import cli as jcli
 from msu_latentafis_tpu.config import AfisConfig as JaxConfig
@@ -47,6 +48,17 @@ from msu_latentafis_tpu_torch.utils import logging as plogging
 from msu_latentafis_tpu_torch.utils import timing as ptiming
 from msu_latentafis_tpu_torch.utils.synthetic import (
     make_latent_template, make_rolled_template, random_codebook)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the suite's workers share the host's
+    cores, and an intra-op pool in each spins waiting on the others (a
+    test ran 7x slower with 8 threads than with 1 beside 8 busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 RTOL, ATOL = 1e-6, 2e-5
 GALLERY = 12

@@ -26,6 +26,17 @@ from msu_latentafis_tpu_torch.utils.synthetic import (
     make_latent_template, make_rolled_template, random_codebook,
     synthetic_packed_gallery)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the suite's workers share the host's
+    cores, and an intra-op pool in each spins waiting on the others (a
+    test ran 7x slower with 8 threads than with 1 beside 8 busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 N_LATENTS = 8
 N_GALLERY = 25
 CAPS = dict(minu_cap=32, tex_cap=48)

@@ -25,6 +25,17 @@ from msu_latentafis_tpu_torch.matcher.minutiae_match import (
     minutiae_correspondence_indices, minutiae_correspondences,
     minutiae_similarity)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the suite's workers share the host's
+    cores, and an intra-op pool in each spins waiting on the others (a
+    test ran 7x slower with 8 threads than with 1 beside 8 busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = dict(rtol=1e-5, atol=1e-4)
 MODES = [(True, 3), (False, 5)]          # (lookup, dist_iters)
 

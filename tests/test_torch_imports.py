@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, nothing of the JAX package, no Triton and
-no kernel build at import time."""
+"""The port stands alone: no JAX (nor Flax or Orbax), nothing of the JAX
+package, no Triton and no kernel build at import time."""
 import os
 import re
 import subprocess
@@ -12,6 +12,8 @@ PORT = ROOT / "msu_latentafis_tpu_torch"
 _NO_JAX = r'''
 import sys
 sys.modules["jax"] = None          # any "import jax" now raises ImportError
+sys.modules["flax"] = None
+sys.modules["orbax"] = None
 sys.modules["msu_latentafis_tpu"] = None
 import importlib, pkgutil
 import numpy as np
@@ -30,8 +32,18 @@ assert score > 50.0, score
 for name in ("config", "scripts.exp_screen_mfu",
              "scripts.microbench_h1_probe", "matcher.reference_impl",
              "templates.native_io", "utils.timing", "utils.logging",
-             "scripts.loader_bench", "scripts.h1_phases"):
+             "scripts.loader_bench", "scripts.h1_phases",
+             "templates.legacy_codec", "ops.pq", "models.compnet",
+             "pipeline.models_bundle", "pipeline.postprocess",
+             "parallel.manifest", "parallel.mesh", "parallel.distributed",
+             "parallel.sharding"):
     assert "msu_latentafis_tpu_torch." + name in sys.modules, name
+from msu_latentafis_tpu_torch.models.compnet import CompNet
+from msu_latentafis_tpu_torch.ops.pq import pq_encode
+from msu_latentafis_tpu_torch.pipeline import ModelBundle
+des = ModelBundle(CompNet(), device="cpu").compress(
+    rng.standard_normal((5, 192)).astype(np.float32))
+assert des.shape == (5, 96) and pq_encode(des, cb, device="cpu").shape == (5, 16)
 from msu_latentafis_tpu_torch.utils.logging import score_stats
 from msu_latentafis_tpu_torch.utils.timing import PhaseTimer
 timer = PhaseTimer()
@@ -47,13 +59,14 @@ bf = MatchEngine(cb, block_size=1, compute_dtype=torch.bfloat16,
 q = float(bf.match_scores(packed[0], bf.load_gallery(mates))[0])
 assert abs(q - score) < 0.05 * score, (q, score)
 assert "triton" not in sys.modules
-assert not any(k.startswith("jax") for k, v in sys.modules.items() if v)
+assert not any(k.startswith(("jax", "flax", "orbax"))
+               for k, v in sys.modules.items() if v)
 print("OK", score)
 '''
 
 
 def test_port_runs_without_jax():
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -67,7 +80,8 @@ def _sources():
 
 
 def test_no_jax_package_imports():
-    imp = re.compile(r"^\s*(import|from)\s+(jax|msu_latentafis_tpu)\b", re.M)
+    imp = re.compile(r"^\s*(import|from)\s+(jax|flax|orbax|msu_latentafis_tpu)\b",
+                     re.M)
     for f in _sources() + [ROOT / "chip_smoke.py"]:
         text = f.read_text()
         assert not imp.search(text), f

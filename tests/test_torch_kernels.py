@@ -17,6 +17,17 @@ from msu_latentafis_tpu_torch.matcher import graph_filter as tgf
 from msu_latentafis_tpu_torch.matcher import texture_match as ttm
 from msu_latentafis_tpu_torch.matcher.kernels import ops
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the suite's workers share the host's
+    cores, and an intra-op pool in each spins waiting on the others (a
+    test ran 7x slower with 8 threads than with 1 beside 8 busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = dict(rtol=1e-5, atol=1e-4)
 
 

@@ -33,6 +33,17 @@ from msu_latentafis_tpu_torch.templates import pack_gallery, pack_latent
 from msu_latentafis_tpu_torch.utils.synthetic import (
     make_latent_template, make_rolled_template, random_codebook)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the suite's workers share the host's
+    cores, and an intra-op pool in each spins waiting on the others (a
+    test ran 7x slower with 8 threads than with 1 beside 8 busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = dict(rtol=1e-5, atol=1e-4)
 ENGINE_TOL = dict(rtol=1e-4, atol=1e-3)
 CAPS = dict(minu_cap=32, tex_cap=48)

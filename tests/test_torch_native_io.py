@@ -12,12 +12,24 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from msu_latentafis_tpu_torch.templates import (
     pack_gallery, read_final_template, write_final_rolled_pq_template)
 from msu_latentafis_tpu_torch.templates import native_io
 from msu_latentafis_tpu_torch.utils.synthetic import (make_rolled_template,
                                                       random_codebook)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the suite's workers share the host's
+    cores, and an intra-op pool in each spins waiting on the others (a
+    test ran 7x slower with 8 threads than with 1 beside 8 busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = Path(__file__).resolve().parents[1]
 FIELDS = ("minu_des", "minu_xy", "minu_ori", "minu_n", "tex_codes",

@@ -34,6 +34,17 @@ from msu_latentafis_tpu_torch.utils.synthetic import random_codebook
 
 from test_torch_tc_tolerance import ORDERS
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the suite's workers share the host's
+    cores, and an intra-op pool in each spins waiting on the others (a
+    test ran 7x slower with 8 threads than with 1 beside 8 busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 BF16 = torch.bfloat16
 NEG = float(np.float32(-1e30))
 

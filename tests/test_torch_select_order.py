@@ -40,6 +40,17 @@ from msu_latentafis_tpu_torch.matcher.kernels import ops
 from msu_latentafis_tpu_torch.matcher.minutiae_match import (
     SENT, minutiae_similarity, mutual_normalize, row_candidates)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the suite's workers share the host's
+    cores, and an intra-op pool in each spins waiting on the others (a
+    test ran 7x slower with 8 threads than with 1 beside 8 busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 F32 = torch.float32
 
 
