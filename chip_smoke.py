@@ -115,9 +115,9 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      DR (seeded weights, random batch statistics) through
      ``template_compression`` on the card and on the CPU (largest
      difference against rtol / atol 1e-5), ``encode_pq`` of the card's DR
-     output on the card and on the CPU (the codes that differ counted, each
-     within the f32 expansion's rounding bound, ``ops.pq.code_flip_bound``;
-     final .dat bytes equal in every file without a differing code); the
+     output on the card and on the CPU (no code may differ: the entries
+     within the tie bound are refined on the host and counted; final .dat
+     bytes equal in every file); the
      card's final gallery read by the native loader, ``shard_gallery`` /
      ``match_sharded`` at world size 1 over NCCL equal to
      ``match_scores_batch`` bit for bit, ``topk_collective`` (k 24) equal
@@ -126,7 +126,25 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      ``match_scores_batch`` in the same call and phase 3's number; then DR
      and PQ of 4,480,000 device-resident rows (rows/s) and
      ``train_codebook`` on 1,000,000 x 96 rows, 20 iterations, twice (the
-     same bits). One card: no run across cards is made.
+     same bits). One card: no run across cards is made;
+  12. extraction on the card: 8 synthetic rolled prints at 500 ppi (4 of
+     512 x 512, NIST SD4's size, and 4 of 832 x 768, NIST SD14's),
+     written as 8-bit BMP and PNG, and one 1,200 ppi PNG in an n2n layout;
+     seeded full-width weights in the Flax layout (non-identity batch
+     statistics) written as .npz and named by a config with a codebook;
+     ``cli.main(["extract-rolled", ...])`` over both directories: every
+     image gives its final .dat with minutiae and a texture template, no
+     ``extraction FAILED``, each print's stage seconds and the nets'
+     forward ms printed; two prints extracted on the CPU too: the
+     heatmaps and embeddings of the same inputs within their bounds, the
+     minutiae lists equal but for entries whose deciding value lies
+     within the two runs' difference (counted); the enhancement net and
+     the 128-pixel minutiae net on an 800 x 768 image (NIST SD27's latent
+     size), card against CPU; then each card template written again as a
+     latent TF_C file (its minutiae template in each of 28 slots),
+     post-processed, and matched against the 8 prints with ``match
+     -ldir`` (every print's own template at rank 1) and ``match -l`` for
+     the first (rank 1, its correspondence files).
 The kernels' JSON record takes each kernel's launches from the path that
 runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 6) and its numbers from the same path's shapes and data: means per launch
@@ -158,6 +176,7 @@ import faulthandler
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -198,6 +217,17 @@ DR_TOL = dict(rtol=1e-5, atol=1e-5)   # CompNet on the card vs the CPU
 ENROLL_ROWS = 10000 * 448    # DR and PQ rows timed: 10,000 rolled prints
 TRAIN_ROWS = 1000000         # train_codebook's rows (16 x 256, 20 steps)
 TOPK = 24
+# phase 12: extraction on the card. Print sizes of NIST SD4 (512 x 512) and
+# SD14 (832 x 768); a latent of SD27's (800 x 768)
+EXTRACT_SIZES = ((512, 512),) * 4 + ((768, 832),) * 4
+EXTRACT_CPU = (0, 1)         # prints extracted on the CPU too (a PNG, a BMP)
+N2N_SIZE = (1229, 1229)      # SD4's print at 1,200 ppi
+LATENT_SIZE = (800, 768)
+U32 = 2.0 ** -24             # f32 unit roundoff
+# a net's outputs, card against CPU on the same input: within K u max|out|
+# with K its longest dot product (kh kw c_in): one reordered f32 sum's bound
+NET_K = {"enhancement": 16 * 128, "minutiae": 16 * 512,
+         "descriptor": 9 * 256}
 MUFU_PER_SM = 16             # H100 special-function lanes per SM and clock
 SM_CLOCK_HZ = 1.98e9         # H100 SXM boost clock, at which the peaks hold
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -2225,7 +2255,7 @@ def phase_enroll(engine, cb, rng, card, workdir, lats, mates, positions,
     import torch.distributed as dist
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     from msu_latentafis_tpu_torch.models.compnet import compress_rows
-    from msu_latentafis_tpu_torch.ops.pq import (code_flip_bound, pq_codes,
+    from msu_latentafis_tpu_torch.ops.pq import (assign_rows, pq_codes,
                                                  train_codebook)
     from msu_latentafis_tpu_torch.parallel import (make_mesh, match_sharded,
                                                    shard_gallery)
@@ -2288,36 +2318,32 @@ def phase_enroll(engine, cb, rng, card, workdir, lats, mates, positions,
         raise AssertionError("DR on the card outside its bound of the CPU's")
     for who, out, where in (("card", "dat_r", dev), ("cpu", "dat_r_cpu",
                                                      "cpu")):
+        assign_rows.refined = 0
         t0 = time.perf_counter()
         encode_pq(d["dr_r"], d[out], "rolled", cb_path, device=where)
         secs[f"pq_{who}"] = time.perf_counter() - t0
+        secs[f"refined_{who}"] = assign_rows.refined
     encode_pq(d["dr_l"], d["dat_l"], "latent", device=dev)
-    n_codes, gaps, equal_files, flip_files = 0, [], 0, 0
+    n_codes, n_diff, n_files = 0, 0, 0
     for name in sorted(os.listdir(d["dat_r"])):
         fa, fb = (os.path.join(d[k], name) for k in ("dat_r", "dat_r_cpu"))
         ca, cc = (read_final_template(f, kind="rolled").texture_template[0]
                   .des for f in (fa, fb))
         n_codes += ca.size
-        if np.array_equal(ca, cc):
-            with open(fa, "rb") as f, open(fb, "rb") as g:
-                if f.read() != g.read():
-                    raise AssertionError(f"{name}: codes equal, bytes not")
-            equal_files += 1
-            continue
-        flip_files += 1
-        src = read_template(os.path.join(d["dr_r"], name), is_latent=False)
-        gaps.append(code_flip_bound(src.texture_template[0].des, cb, ca, cc))
-    gaps = np.concatenate(gaps) if gaps else np.zeros((0, 2))
+        n_diff += int((ca != cc).sum())
+        with open(fa, "rb") as f, open(fb, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{name}: final .dat bytes differ "
+                                     f"between card and CPU")
+        n_files += 1
     log(f"[enroll] PQ encode (16 x 256 x 6): card {secs['pq_card']:.2f} s, "
-        f"CPU {secs['pq_cpu']:.2f} s; codes differing card / CPU "
-        f"{len(gaps)} of {n_codes}"
-        + (f" (largest gap {gaps[:, 0].max():.3e}, each within its f32 "
-           f"expansion bound, largest bound {gaps[:, 1].max():.3e})"
-           if len(gaps) else "")
-        + f"; final .dat bytes equal in all {equal_files} files without a "
-        f"differing code ({flip_files} with one) on {card}")
-    if len(gaps) and not np.all(gaps[:, 0] <= gaps[:, 1]):
-        raise AssertionError("a code differs beyond the expansion's bound")
+        f"CPU {secs['pq_cpu']:.2f} s; codes differing card / CPU {n_diff} "
+        f"of {n_codes}; {secs['refined_card']} (row, subspace) entries "
+        f"within the tie "
+        f"bound refined on the host; final .dat bytes equal in all "
+        f"{n_files} files on {card}")
+    if n_diff:
+        raise AssertionError("PQ codes differ between card and CPU")
 
     # (b) the sharded match on the card's final gallery, then at GALLERY_G
     t0 = time.perf_counter()
@@ -2420,6 +2446,291 @@ def phase_enroll(engine, cb, rng, card, workdir, lats, mates, positions,
         f"rows, f32, TF32 off); train_codebook {TRAIN_ROWS} x 96, 16 x 256, "
         f"20 iterations: {train_s[0]:.3f} s and {train_s[1]:.3f} s, the same "
         f"bits twice, on {card}")
+
+
+def near_tie_pixels(hm_a, hm_b, thr: float, cap: int = 1000) -> list:
+    """Pixels where decode_cylinder's decision between heatmaps a and b (the
+    same print, two runs) may flip: their channel max within twice the
+    heatmaps' largest difference of ``thr`` or of a neighbour (NMS), or
+    their confidence within twice the two decodes' largest confidence
+    difference of the cap-th candidate's (the cut), or a refine orientation
+    comparison within twice the largest orientation difference of pi / 4.
+    Returns (y, x) pairs."""
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.ops.minutiae import decode_cylinder
+    delta = 2 * float((hm_a - hm_b).abs().max())
+    mv = hm_b.amax(dim=2)
+    h, w = mv.shape
+    p = torch.nn.functional.pad(mv, [1, 1, 1, 1], value=float("inf"))
+    gap = torch.full_like(mv, float("inf"))
+    for dy in range(3):
+        for dx in range(3):
+            if dy != 1 or dx != 1:
+                gap = torch.minimum(gap, (mv - p[dy:dy + h, dx:dx + w]).abs())
+    near = ((mv - thr).abs() <= delta) | ((gap <= delta) & (mv > thr - delta))
+    out = [tuple(int(v) for v in yx) for yx in torch.nonzero(near)]
+    (ma, na), (mb, nb) = (decode_cylinder(hm, thr, max_minutiae=cap + 1)
+                          for hm in (hm_a, hm_b))
+    a = {(int(r[1]), int(r[0])): r for r in ma[:na].tolist()}
+    b = {(int(r[1]), int(r[0])): r for r in mb[:nb].tolist()}
+    both = [k for k in a if k in b]
+    d_conf = 2 * max((abs(a[k][3] - b[k][3]) for k in both), default=0.0)
+    d_ori = 2 * max((abs(a[k][2] - b[k][2]) for k in both), default=0.0)
+    if nb > cap:
+        cut = float(mb[cap - 1, 3])
+        out += [k for k, r in b.items() if abs(r[3] - cut) <= d_conf]
+    rows = np.asarray(mb[:min(nb, cap)].tolist()).reshape(-1, 4)
+    if len(rows):
+        od = np.abs(rows[:, 2][None] - rows[:, 2][:, None])
+        od = np.minimum(od, 2 * np.pi - od)
+        yy, xx = np.nonzero(np.abs(od - np.pi / 4) <= d_ori)
+        out += [(int(rows[i, 1]), int(rows[i, 0])) for i in set(yy) | set(xx)]
+    return out
+
+
+def explain_minutiae(ma, mb, ties, radius: float = 25.0):
+    """Minutiae lists a and b of one print, rows (x, y, ori, conf): the
+    entries of either list without a match at the same pixel, and how many
+    of them lie within ``radius`` (the crowding filter's reach) of a near
+    tie; raises on one that does not, and on a common entry whose
+    orientation differs by more than 1e-4 rad."""
+    import numpy as np
+    ka = {(int(r[0]), int(r[1])): r for r in ma}
+    kb = {(int(r[0]), int(r[1])): r for r in mb}
+    for k in ka.keys() & kb.keys():
+        if abs(ka[k][2] - kb[k][2]) > 1e-4:
+            raise AssertionError(f"minutia {k}: orientations {ka[k][2]} / "
+                                 f"{kb[k][2]}")
+    odd = sorted(ka.keys() ^ kb.keys())
+    t = np.asarray([(x, y) for y, x in ties], np.float64).reshape(-1, 2)
+    for x, y in odd:
+        if not len(t) or np.hypot(t[:, 0] - x, t[:, 1] - y).min() > radius:
+            raise AssertionError(f"minutia ({x}, {y}) differs between card "
+                                 f"and CPU with no near tie within "
+                                 f"{radius} px")
+    return len(odd)
+
+
+def phase_extract(cb, card, workdir, device="cuda"):
+    """Phase 12: rolled prints from image files to final .dat on the card
+    through ``extract-rolled``, two against the CPU, then each print's own
+    template through the matcher."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch import cli
+    from msu_latentafis_tpu_torch.config import AfisConfig
+    from msu_latentafis_tpu_torch.ops import fft, maps
+    from msu_latentafis_tpu_torch.pipeline import (ModelBundle,
+                                                   RolledFeatureExtractor)
+    from msu_latentafis_tpu_torch.pipeline.latent import adjust_image_size
+    from msu_latentafis_tpu_torch.pipeline.postprocess import (
+        encode_pq, template_compression)
+    from msu_latentafis_tpu_torch.templates import (read_final_template,
+                                                    write_codebook,
+                                                    write_template)
+    from msu_latentafis_tpu_torch.utils import image_io
+    from msu_latentafis_tpu_torch.utils.synthetic import (
+        random_bundle_variables, render_ridge_image, write_bundle_npz)
+
+    d = {k: os.path.join(workdir, k) for k in (
+        "img", "n2n", "dat", "lat_tfc", "lat_dr", "lat", "scores")}
+    rng = np.random.default_rng(12)
+    os.makedirs(d["img"])
+    files = []
+    for i, (h, w) in enumerate(EXTRACT_SIZES):
+        img = np.round(render_ridge_image(rng, h, w)[0]).astype(np.uint8)
+        f = os.path.join(d["img"], f"p{i}." + ("bmp" if i % 2 else "png"))
+        if i % 2:
+            image_io.write_bmp(f, img)
+        else:
+            image_io.write_png(f, img, filters=(0, 1, 2, 3, 4))
+        files.append(f)
+    os.makedirs(os.path.join(d["n2n"], "subject0"))
+    image_io.write_png(os.path.join(d["n2n"], "subject0", "n0.png"),
+                       np.round(render_ridge_image(rng, *N2N_SIZE)[0])
+                       .astype(np.uint8), filters=(1, 2, 4))
+    paths = write_bundle_npz(os.path.join(workdir, "weights"),
+                             random_bundle_variables(12))
+    cb_path = os.path.join(workdir, "codebook.dat")
+    write_codebook(cb_path, cb)
+    cfg = AfisConfig(**paths, CodebookPath=cb_path)
+    cfg_path = os.path.join(workdir, "afis.config")
+    cfg.save(cfg_path)
+
+    # (a) extract-rolled over both layouts, on the card
+    secs = {}
+    for name, idir, extra in (("flat", d["img"], []),
+                              ("n2n", d["n2n"], ["--layout", "n2n"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["extract-rolled", "--idir", idir, "--tdir",
+                           d["dat"], "--config", cfg_path, "--device",
+                           device] + extra)
+        secs[name] = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            log(f"[extract {name}] {line}")
+        if rc != 0 or "extraction FAILED" in buf.getvalue():
+            raise AssertionError(f"extract-rolled {name}: rc {rc}")
+    stems = [f"p{i}" for i in range(len(files))] + ["n0"]
+    counts = []
+    for stem in stems:
+        t = read_final_template(os.path.join(d["dat"], stem + ".dat"),
+                                "rolled")
+        n_minu = len(t.minu_template[0].minutiae) if t.minu_template else 0
+        n_tex = len(t.texture_template[0].minutiae) \
+            if t.texture_template else 0
+        if n_minu == 0 or n_tex == 0:
+            raise AssertionError(f"{stem}: {n_minu} minutiae, {n_tex} "
+                                 f"texture rows")
+        counts.append((n_minu, n_tex))
+    log(f"[extract] extract-rolled on the card, seeded full-width weights: "
+        f"{len(files)} prints in {secs['flat']:.2f} s (the first print "
+        f"builds cuDNN's plans), the 1,200 ppi n2n print in "
+        f"{secs['n2n']:.2f} s; (minutiae, texture rows) per print {counts} "
+        f"on {card}")
+
+    # (b) the nets' forward times on the card, warm
+    bundles = {"card": ModelBundle.initialize(cfg, device=device),
+               "cpu": ModelBundle.initialize(cfg, device="cpu")}
+    cb_ = bundles["card"]
+    imgs = [adjust_image_size(image_io.read_grey(f).astype(np.float32))
+            for f in files]
+    latent = render_ridge_image(rng, *LATENT_SIZE)[0].astype(np.float32)
+    fwd = {}
+    size = lambda a: "x".join(map(str, a.shape))  # noqa: E731
+    for label, fn in (
+            (f"minutiae64 {size(imgs[0])}",
+             lambda: cb_.minutiae_heatmap(2, imgs[0])),
+            (f"minutiae64 {size(imgs[-1])}",
+             lambda: cb_.minutiae_heatmap(2, imgs[-1])),
+            (f"enhancement {size(latent)}", lambda: cb_.enhance(latent)),
+            (f"minutiae {size(latent)}",
+             lambda: cb_.minutiae_heatmap(1, latent)),
+            ("3 descriptors x 512 patches", lambda: [
+                cb_._embed(k, torch.zeros((512, 96, 96), device=device))
+                for k in range(3)])):
+        fwd[label] = cuda_ms(fn, 3)
+    log(f"[extract] nets' forward ms on the card (f32, TF32 off): "
+        f"{ {k: round(v, 3) for k, v in fwd.items()} } on {card}")
+
+    # (c) card against CPU: two prints, the latent-sized image
+    worst = {}
+    diffs = 0
+    for i in EXTRACT_CPU:
+        img = imgs[i]
+        tpl = {who: RolledFeatureExtractor(models=b).extract(img)
+               for who, b in bundles.items()}
+        tex = {who: fft.fast_cartoon_texture(torch.as_tensor(
+            img, device=b.device)) for who, b in bundles.items()}
+        # the nets on the same inputs
+        hm = {who: b.minutiae_heatmap(2, tex["cpu"]).cpu()
+              for who, b in bundles.items()}
+        minu = tpl["cpu"].minu_template[0].minutiae
+        des = {who: b.describe(img, minu) for who, b in bundles.items()}
+        worst[f"heatmap p{i}"] = float((hm["card"] - hm["cpu"]).abs().max()
+                                       / (NET_K["minutiae"] * U32
+                                          * max(float(hm["cpu"].abs().max()),
+                                                1.0)))
+        worst[f"embeddings p{i}"] = max(
+            float(np.abs(a - b).max()) / (2 * NET_K["descriptor"] * U32)
+            for a, b in zip(des["card"], des["cpu"]))
+        # the minutiae lists of the two whole runs
+        full = {who: b.minutiae_heatmap(2, tex[who]).cpu()
+                for who, b in bundles.items()}
+        ties = near_tie_pixels(full["card"], full["cpu"], 0.15)
+        ma, mb = (tpl[w].minu_template[0].minutiae for w in ("card", "cpu"))
+        diffs += explain_minutiae(ma, mb, ties)
+        mask = {w: tpl[w].minu_template[0].mask for w in tpl}
+        if not np.array_equal(mask["card"], mask["cpu"]):
+            mag = {w: maps._intensity_mask_core(torch.as_tensor(
+                img, device=b.device)).cpu() for w, b in bundles.items()}
+            delta = 2 * float((mag["card"] - mag["cpu"]).abs().max())
+            odd = mask["card"][::8, ::8] != mask["cpu"][::8, ::8]
+            if (((mag["cpu"] - 0.3 * 127.5).abs() > delta).numpy()
+                    & odd).any():
+                raise AssertionError(f"p{i}: masks differ away from a near "
+                                     f"tie")
+            log(f"[extract] p{i}: masks differ at {int(odd.sum())} cells, "
+                f"each within {delta:.3e} of the threshold")
+        log(f"[extract] p{i} card / CPU: {len(ma)} / {len(mb)} minutiae, "
+            f"{len(ties)} near-tie pixels, texture rows "
+            f"{len(tpl['card'].texture_template[0].minutiae)} / "
+            f"{len(tpl['cpu'].texture_template[0].minutiae)}")
+    for label, model, fn in (
+            (f"enhancement {size(latent)}", "enhancement",
+             lambda b: b.enhancement(torch.as_tensor(
+                 latent / 128.0 - 1.0, device=b.device)[None, None])),
+            (f"minutiae {size(latent)}", "minutiae",
+             lambda b: b.minutiae_heatmap(1, latent))):
+        with torch.inference_mode():
+            from msu_latentafis_tpu_torch.utils.precision import f32_compute
+            with f32_compute():
+                out = {w: fn(b).cpu() for w, b in bundles.items()}
+        worst[label] = float((out["card"] - out["cpu"]).abs().max()
+                             / (NET_K[model] * U32
+                                * max(float(out["cpu"].abs().max()), 1.0)))
+    log(f"[extract] card against CPU on the same inputs, |card - CPU| over "
+        f"its bound (K u max|out|; embeddings 2 K u): "
+        f"{ {k: round(v, 4) for k, v in worst.items()} }; minutiae differing "
+        f"between the two whole runs: {diffs}, each within 25 px of a near "
+        f"tie, on {card}")
+    if max(worst.values()) > 1.0:
+        raise AssertionError("a net on the card outside its bound of the "
+                             "CPU's")
+
+    # (d) each print's own template through the matcher
+    # as a latent: the print's minutiae template in each of a latent's
+    # ENROLL_T slots, so the matcher's selected templates (26, 2, 11) hold it
+    os.makedirs(d["lat_tfc"])
+    ext = RolledFeatureExtractor(models=bundles["card"])
+    for stem, img in zip(stems, imgs):
+        t = ext.extract(img)
+        t.minu_template = t.minu_template * ENROLL_T
+        write_template(os.path.join(d["lat_tfc"], stem + ".dat"), t,
+                       is_latent=True)
+    template_compression(bundles["card"], d["lat_tfc"], d["lat_dr"],
+                         is_latent=True)
+    encode_pq(d["lat_dr"], d["lat"], "latent", device=device)
+    gdir = os.path.join(workdir, "gallery")
+    os.makedirs(gdir)
+    for stem in stems[:len(imgs)]:
+        shutil.copy(os.path.join(d["dat"], stem + ".dat"), gdir)
+    # -ldir over every latent (each entry's score), then -l for the first
+    # (its ranked CSV and correspondence files: the NumPy spec, seconds)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["match", "-ldir", d["lat"], "-g", gdir, "-c", cb_path,
+                  "-s", d["scores"], "--device", device])
+    ranks = []
+    for stem in stems[:len(imgs)]:
+        with open(os.path.join(d["scores"], stem + ".csv")) as f:
+            scores = dict((n, float(v)) for n, v in      # no header
+                          (r.split(",") for r in f.read().split()))
+        order = sorted(scores, key=lambda n: -scores[n])
+        ranks.append((order[0], round(scores[order[0]], 3),
+                      round(scores[order[1]], 3)))
+        if order[0] != stem:
+            raise AssertionError(f"-ldir {stem}: rank 1 is {order[0]}")
+    ldir_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["match", "-l", os.path.join(d["lat"], stems[0] + ".dat"),
+                  "-g", gdir, "-c", cb_path, "-s", d["scores"], "--device",
+                  device])
+    with open(os.path.join(d["scores"], stems[0] + ".csv")) as f:
+        top = f.read().split()[1].split(",")[0]         # "<rank><name>"
+    if top != "1" + stems[0]:
+        raise AssertionError(f"-l {stems[0]}: rank 1 is {top}")
+    n_corr = len([f for f in os.listdir(d["scores"]) if f.startswith("corr")])
+    log(f"[extract] each card template as a latent (DR, final .dat) against "
+        f"the {len(imgs)}-print gallery: -ldir {ldir_s:.2f} s, every print's "
+        f"own template at rank 1 (rank 1, its score, the rank-2 score: "
+        f"{ranks}); -l {stems[0]} {time.perf_counter() - t0:.2f} s, rank 1, "
+        f"{n_corr} correspondence files, on {card}")
 
 
 def launch_split(label, fn, sym=None, reps: int = 20) -> list:
@@ -2603,6 +2914,11 @@ def main() -> int:
         phase_enroll(engine, cb, rng, card, work, lats, mates, positions,
                      dense_lps)
     log(f"[phase 11] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_root) as work:
+        phase_extract(cb, card, work)
+    log(f"[phase 12] {time.perf_counter() - t0:.1f} s")
     # each kernel's launches and numbers on the main path that runs it: the
     # dense match (phase 3), 100,000-entry serving in its layout or with
     # normalize=True (phase 5), the standalone filter path (phase 6), the

@@ -1,11 +1,25 @@
-"""Command-line interface of the port: 1:N and N:N matching.
+"""Command-line interface of the port: rolled enrollment and matching.
 
+    python -m msu_latentafis_tpu_torch.cli extract-rolled --idir DIR \
+        [--tdir DIR] [--N1 N] [--N2 N] [--layout flat|longitudinal|msp|n2n] \
+        [--config FILE] [--device cpu]
     python -m msu_latentafis_tpu_torch.cli match (-l LATENT.dat | -ldir DIR) \
         -g GALLERY_DIR [-c CODEBOOK.dat] [-s SCORE_DIR] [--config FILE] \
         [--device cpu] [--trace DIR] \
         [--rerank M [--prescreen K --prescreen-lt 64 --prescreen-t 1]]
 
-The reference's matching entry point (matching/main.cpp:35-87), as the
+``extract-rolled`` is the reference's rolled extraction
+(extraction_rolled.py:278-286) as the JAX package's runs it: each image of
+the layout (``pipeline.rolled.enumerate_rolled_dataset``) whose
+``TDIR/<stem>.dat`` does not exist yet goes through the
+``RolledFeatureExtractor`` (nets from the config's ``.npz`` model paths,
+else the seeded init), is written as TF_C, read back, reduced by the
+CompNet and, where the config names a ``CodebookPath``, PQ-encoded, and
+written as the final rolled ``.dat``. A file that fails prints
+``extraction FAILED`` and the run goes on. ``--tdir`` defaults to the
+config's ``GalleryTemplateDirectory``.
+
+``match`` is the reference's matching entry point (matching/main.cpp:35-87), as the
 JAX package's ``match`` runs it. The gallery is every rolled ``.dat`` in
 ``-g``, read by the native C++ loader (``templates/native_io``, built with
 g++ at first use) or, where it cannot be built, by the Python packer; the
@@ -149,10 +163,73 @@ def cmd_match(args) -> int:
     return 0
 
 
+def cmd_extract_rolled(args) -> int:
+    from .ops.pq import pq_encode
+    from .pipeline import ModelBundle, RolledFeatureExtractor
+    from .pipeline.postprocess import compress_template
+    from .pipeline.rolled import enumerate_rolled_dataset
+    from .templates import (read_template, write_final_rolled_pq_template,
+                            write_template)
+    cfg = load_config(args.config)
+    tdir = args.tdir or cfg.GalleryTemplateDirectory
+    if not tdir:
+        raise SystemExit("extract-rolled: give --tdir, or a config with "
+                         "GalleryTemplateDirectory")
+    os.makedirs(tdir, exist_ok=True)
+    models = ModelBundle.initialize(cfg, device=args.device)
+    extractor = RolledFeatureExtractor(models=models)
+    codebook = read_codebook(cfg.CodebookPath) if cfg.CodebookPath else None
+    for f, name, ppi in enumerate_rolled_dataset(
+            args.idir, layout=args.layout, N1=args.N1, N2=args.N2):
+        out = os.path.join(tdir, name + ".dat")
+        if os.path.exists(out):
+            continue
+        timer = PhaseTimer()
+        try:
+            with timer.phase("extract"):
+                template = extractor.extract_file(f, ppi=ppi)
+        except Exception as e:    # skip and go on, as the reference does
+            print(f"{f}: extraction FAILED ({type(e).__name__}: {e}); "
+                  f"skipping")
+            count("extraction failures")
+            continue
+        print(f"{f}: extracted in {timer.buckets['extract']:.2f}s "
+              f"({ {k: round(v, 4) for k, v in extractor.timings.items()} })")
+        with timer.phase("postprocess"):
+            write_template(out, template, is_latent=False)
+            t = read_template(out, is_latent=False)
+            compress_template(models, t)
+            if codebook is not None and t.texture_template and \
+                    t.texture_template[0].des is not None:
+                t.texture_template[0].des = pq_encode(
+                    t.texture_template[0].des, codebook, device=args.device)
+            write_final_rolled_pq_template(out, t)
+        count("extracted")
+        event("extract", image=f, template=out, **extractor.timings,
+              postprocess=timer.buckets["postprocess"])
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(prog="afis-torch",
                                 description="latent AFIS on PyTorch/CUDA")
     sub = p.add_subparsers(dest="cmd", required=True)
+    pr = sub.add_parser("extract-rolled", help="enroll a directory of rolled "
+                                               "prints as final .dat files")
+    pr.add_argument("--idir", required=True, help="image directory")
+    pr.add_argument("--tdir", help="template directory (default: the "
+                                   "config's GalleryTemplateDirectory)")
+    pr.add_argument("--N1", type=int, default=0)
+    pr.add_argument("--N2", type=int, default=10 ** 9)
+    pr.add_argument("--layout", default="flat",
+                    choices=["flat", "longitudinal", "msp", "n2n"],
+                    help="dataset layout (the reference's batch modes)")
+    pr.add_argument("--config", help="afis.config path (default: the first "
+                                     "afis.config from the working directory "
+                                     "up)")
+    pr.add_argument("--device", default="cuda",
+                    help="torch device (default cuda)")
+    pr.set_defaults(fn=cmd_extract_rolled)
     pm = sub.add_parser("match", help="match one latent (-l) or a "
                                       "directory of latents (-ldir)")
     pm.add_argument("-l", "--latent", help="latent .dat (One2List)")

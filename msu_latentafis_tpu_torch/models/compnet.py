@@ -7,10 +7,10 @@ Linear + BatchNorm output. The DR stage renormalizes each output row to
 ||.|| = 1.73 (descriptor_DR.py:150-153): ``compress_descriptors``. The
 models run in eval mode, on the running statistics.
 
-``compnet_from_flax`` carries the JAX package's Flax variables over:
-a ``Dense`` kernel is [in, out], so it is transposed into
-``Linear.weight``; ``BatchNorm`` scale / bias / mean / var become weight /
-bias / running_mean / running_var, with Flax's eps 1e-5.
+``compnet_from_flax`` carries the JAX package's Flax variables over
+(``models.weights``): a ``Dense`` kernel is [in, out], so it is transposed
+into ``Linear.weight``; ``BatchNorm`` scale / bias / mean / var become
+weight / bias / running_mean / running_var, with Flax's eps 1e-5.
 """
 from __future__ import annotations
 
@@ -22,9 +22,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pq import f32_matmul
+from .weights import BN_EPS, load_flax
 
 DES_NORM = 1.73
-BN_EPS = 1e-5            # flax.linen.BatchNorm's default epsilon
 COMPRESS_ROWS = 1 << 20  # rows per forward pass of compress_rows
 
 
@@ -41,6 +41,10 @@ class BasicBlock(nn.Module):
         y = self.bn2(self.fc2(y))
         return F.leaky_relu(y + x, 0.2)
 
+    def flax_modules(self, prefix: str) -> dict:
+        return {f"{prefix}/Dense_0": self.fc1, f"{prefix}/BatchNorm_0": self.bn1,
+                f"{prefix}/Dense_1": self.fc2, f"{prefix}/BatchNorm_1": self.bn2}
+
 
 class CompNet(nn.Module):
     def __init__(self, in_dims: int = 192, out_dims: int = 96):
@@ -56,57 +60,19 @@ class CompNet(nn.Module):
         x = self.block(x)
         return self.bn_out(self.fc_out(x))
 
-
-# Flax module path -> the CompNet submodule that takes its variables
-FLAX_NAMES = {
-    "Dense_0": "fc_in", "BatchNorm_0": "bn_in",
-    "BasicBlock_0/Dense_0": "block.fc1", "BasicBlock_0/BatchNorm_0": "block.bn1",
-    "BasicBlock_0/Dense_1": "block.fc2", "BasicBlock_0/BatchNorm_1": "block.bn2",
-    "Dense_1": "fc_out", "BatchNorm_1": "bn_out",
-}
-# Flax collection and leaf -> the torch parameter or buffer it becomes
-FLAX_LEAVES = {
-    ("params", "kernel"): "weight", ("params", "scale"): "weight",
-    ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
-    ("batch_stats", "var"): "running_var",
-}
-
-
-def _flatten(tree: Mapping, prefix: str = "") -> dict:
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, Mapping):
-            out.update(_flatten(v, path))
-        else:
-            out[path] = np.asarray(v, np.float32)
-    return out
+    def flax_modules(self) -> dict:
+        return {"Dense_0": self.fc_in, "BatchNorm_0": self.bn_in,
+                **self.block.flax_modules("BasicBlock_0"),
+                "Dense_1": self.fc_out, "BatchNorm_1": self.bn_out}
 
 
 def compnet_from_flax(variables: Mapping) -> CompNet:
     """A CompNet in eval mode holding the JAX package's Flax variables
     ``{"params": ..., "batch_stats": ...}`` (leaves as arrays). Raises on a
     variable that no submodule takes or a submodule left without one."""
-    flat = _flatten(variables)
-    kernel = flat["params/Dense_0/kernel"]
-    net = CompNet(in_dims=kernel.shape[0], out_dims=kernel.shape[1])
-    state = {}
-    for flax_mod, torch_mod in FLAX_NAMES.items():
-        for (coll, leaf), name in FLAX_LEAVES.items():
-            key = f"{coll}/{flax_mod}/{leaf}"
-            if key not in flat:
-                continue
-            value = flat.pop(key)
-            state[f"{torch_mod}.{name}"] = torch.tensor(
-                value.T if leaf == "kernel" else value)
-    if flat:
-        raise ValueError(f"Flax variables with no CompNet counterpart: "
-                         f"{sorted(flat)}")
-    for name, buf in net.state_dict().items():
-        if name.endswith("num_batches_tracked"):
-            state[name] = buf
-    net.load_state_dict(state, strict=True)
-    return net.eval()
+    kernel = np.shape(variables["params"]["Dense_0"]["kernel"])
+    return load_flax(CompNet(in_dims=kernel[0], out_dims=kernel[1]),
+                     variables)
 
 
 def compress_rows(model: CompNet, x: torch.Tensor) -> torch.Tensor:

@@ -6,13 +6,18 @@ nearest-centroid assignment -> uint8 codes (:19-27); per-subspace k-means,
 Ks 256, 20 iterations, initialized from data points (:41-77).
 
 Distances take the expansion ||x||^2 - 2 x.c + ||c||^2 in f32, as the JAX
-package's ``_assign`` does, and the argmin keeps the first minimum, so that
-the CPU agrees with it on near ties. The 16 subspaces go through one
-batched product, in chunks of rows that bound its [S, n, K] temporary. On
-a CUDA device the products are cuBLAS's, in f32 (TF32 off while they run):
-their sums may round otherwise than the CPU's, so a row whose two best
-centroids lie within the expansion's rounding (``code_flip_bound``) may
-take the other code there.
+package's ``_assign`` does, and the argmin keeps the first minimum. The 16
+subspaces go through one batched product, in chunks of rows that bound its
+[S, n, K] temporary. On the CPU a row's distances do not depend on the
+other rows of its batch, once the batch has two rows or more (a product of
+one row takes another summation order), so a single row is computed as
+two. On a CUDA device the products are cuBLAS's, in f32 (TF32 off while
+they run), and their sums may round otherwise than the CPU's; so every
+(row, subspace) whose two best distances lie within ``tie_bound`` (the
+expansion's rounding bound) is refined: its distances are computed again
+on the host by the CPU path, in one product per subspace, and its code is
+the CPU's. Codes on the card thus equal the CPU's; ``assign_rows.refined``
+counts the refined entries.
 
 The Lloyd step sums each cluster's rows as a segment sum over the rows
 sorted stably by centroid: in row order within a cluster, as the JAX
@@ -41,24 +46,88 @@ def f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def _assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+def _distances(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """The expansion, x [S, n, d] against centroids [S, K, d] -> [S, n, K];
+    on the CPU a batch of one row is computed as two."""
+    if x.device.type == "cpu" and x.shape[1] == 1:
+        return _distances(x.expand(-1, 2, -1), centroids)[:, :1]
+    return ((x * x).sum(dim=2, keepdim=True)
+            - torch.bmm(2.0 * x, centroids.transpose(1, 2))
+            + (centroids * centroids).sum(dim=2)[:, None, :])
+
+
+def tie_bound(x: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
+    """Per (subspace, row) of x [S, n, d], given its second-best distance:
+    the gap between the two best within which two f32 evaluations of the
+    expansion, summed in any orders, may pick different centroids. Each
+    distance d_j is within E_j = gamma_{d+2} (||x|| + ||c_j||)^2 of exact
+    (``code_flip_bound`` bounds it per centroid); a centroid that can
+    compete lies within sqrt(second) + 1/4 of x, so its norm is below
+    ||x|| + sqrt(second) + 1/4, and one farther off trails by more than
+    1/16 (with norms below 50, four such E stay under 1/50). The gap must
+    exceed twice two such E: 4 gamma (2 ||x|| + sqrt(second) + 1/4)^2."""
+    d = x.shape[-1]
+    u = 2.0 ** -24
+    gamma = (d + 2) * u / (1 - (d + 2) * u)
+    reach = 2.0 * x.norm(dim=2) + torch.sqrt(second.clamp(min=0.0)) + 0.25
+    return 4.0 * gamma * reach * reach
+
+
+def _assign(x: torch.Tensor, centroids: torch.Tensor):
     """Nearest centroid per row and subspace: x [S, n, d], centroids
-    [S, K, d] -> [S, n] int64, the first minimum of the expansion."""
-    d2 = ((x * x).sum(dim=2, keepdim=True)
-          - torch.bmm(2.0 * x, centroids.transpose(1, 2))
-          + (centroids * centroids).sum(dim=2)[:, None, :])
-    return torch.argmin(d2, dim=2)
+    [S, K, d] -> ([S, n] int64, the first minimum; on a CUDA device also
+    the [S, n] mask of entries whose two best lie within ``tie_bound``)."""
+    d2 = _distances(x, centroids)
+    if x.device.type == "cpu":
+        return torch.argmin(d2, dim=2), None
+    return _rank(d2, x)
+
+
+def _rank(d2: torch.Tensor, x: torch.Tensor):
+    """Distances d2 [S, n, K] (overwritten) of rows x -> (the minimum's
+    index [S, n], the mask of entries whose second best lies within
+    ``tie_bound`` of it; an exact tie always does)."""
+    best, out = d2.min(dim=2)
+    second = d2.scatter_(2, out[..., None], float("inf")).amin(dim=2)
+    return out, (second - best) <= tie_bound(x, second)
+
+
+def _refine(x: torch.Tensor, centroids: torch.Tensor, out: torch.Tensor,
+            subs: torch.Tensor, rows: torch.Tensor) -> None:
+    """The CPU path's codes for the tied entries (subs, rows) of x, written
+    into ``out``: each subspace's tied rows in one product on the host."""
+    xt, cs = x[subs, rows].cpu(), centroids.cpu()
+    hs = subs.cpu()
+    codes = torch.empty(len(hs), dtype=torch.int64)
+    for j in torch.unique(hs).tolist():
+        m = hs == j
+        codes[m] = torch.argmin(_distances(xt[m][None], cs[j:j + 1]),
+                                dim=2)[0]
+    out[subs, rows] = codes.to(out.device)
 
 
 def assign_rows(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
-    """``_assign`` over x [S, N, d] in chunks of ENCODE_ROWS -> [S, N]."""
+    """``_assign`` over x [S, N, d] in chunks of ENCODE_ROWS -> [S, N]; on
+    a CUDA device the tied entries of every chunk are then refined."""
     S, N, _ = x.shape
     out = torch.empty((S, N), dtype=torch.int64, device=x.device)
+    tied = None if x.device.type == "cpu" else \
+        torch.empty((S, N), dtype=torch.bool, device=x.device)
     with f32_matmul():
         for a in range(0, N, ENCODE_ROWS):
-            out[:, a:a + ENCODE_ROWS] = _assign(x[:, a:a + ENCODE_ROWS],
-                                                centroids)
+            out[:, a:a + ENCODE_ROWS], t = _assign(x[:, a:a + ENCODE_ROWS],
+                                                   centroids)
+            if tied is not None:
+                tied[:, a:a + ENCODE_ROWS] = t
+    if tied is not None:
+        subs, rows = torch.nonzero(tied, as_tuple=True)
+        assign_rows.refined += len(subs)
+        if len(subs):
+            _refine(x, centroids, out, subs, rows)
     return out
+
+
+assign_rows.refined = 0      # entries refined on the host, on a CUDA device
 
 
 def pq_codes(des: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

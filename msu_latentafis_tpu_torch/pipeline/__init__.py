@@ -1,3 +1,4 @@
 from .models_bundle import ModelBundle
+from .rolled import RolledFeatureExtractor
 
-__all__ = ["ModelBundle"]
+__all__ = ["ModelBundle", "RolledFeatureExtractor"]

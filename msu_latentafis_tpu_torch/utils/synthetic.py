@@ -291,3 +291,118 @@ def random_compnet(seed: int, in_dims: int = 192, out_dims: int = 96):
             else:                                     # BatchNorm scale
                 t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
     return net.eval()
+
+
+def render_ridge_image(rng: np.random.Generator, h: int = 512, w: int = 512,
+                       spacing: float = 9.0, block: int = 16,
+                       noise_sigma: float = 12.0):
+    """A ridge-wave image [h, w] in [0, 255] and its orientation field
+    [ceil(h / block), ceil(w / block)]: the port's copy of the JAX
+    package's ``training/synthetic_data.render_ridge_image``, draw for
+    draw. A smooth random normal field, its phase integrated by an FFT
+    Poisson solve (with the mean gradient split off), rendered as the
+    ridge / valley asymmetric wave of the quality dictionary
+    (get_maps.py:271-283), plus Gaussian noise of ``noise_sigma``."""
+    from scipy.ndimage import gaussian_filter, zoom
+    blkH, blkW = -(-h // block), -(-w // block)
+    smooth = 5
+    vx = gaussian_filter(rng.standard_normal((blkH, blkW)), smooth)
+    vy = gaussian_filter(rng.standard_normal((blkH, blkW)), smooth)
+    vx = zoom(vx, block, order=1)[:h, :w]
+    vy = zoom(vy, block, order=1)[:h, :w]
+    vn = np.sqrt(vx * vx + vy * vy) + 1e-9
+    vx, vy = vx / vn, vy / vn
+    theta = np.arctan2(vy, vx) - np.pi / 2
+    sp = float(np.round(spacing))
+    gx = (2 * np.pi / sp) * vx
+    gy = (2 * np.pi / sp) * vy
+    gx0, gy0 = float(gx.mean()), float(gy.mean())
+    ky = np.fft.fftfreq(h)[:, None] * 2 * np.pi
+    kx = np.fft.fftfreq(w)[None, :] * 2 * np.pi
+    k2 = kx * kx + ky * ky
+    k2[0, 0] = 1.0
+    div_hat = (1j * kx * np.fft.fft2(gx - gx0)
+               + 1j * ky * np.fft.fft2(gy - gy0))
+    phi = np.real(np.fft.ifft2(-div_hat / k2))
+    yy0, xx0 = np.mgrid[0:h, 0:w].astype(np.float64)
+    phi = phi + gx0 * xx0 + gy0 * yy0
+    dist = phi * sp / (2 * np.pi)
+    valley = max(2.0, np.floor(sp / 2) - 1)
+    ridge = sp - valley
+    x_off = np.remainder(dist, sp)
+    y1 = np.where(x_off <= ridge, x_off, 0.0)
+    y2 = np.where(x_off > ridge, x_off - ridge, 0.0)
+    img = -np.sin(2 * np.pi * (y1 / ridge / 2.0)) \
+        + np.sin(2 * np.pi * (y2 / valley / 2.0))
+    img = (img * 0.5 + 0.5) * 255.0
+    if noise_sigma > 0:
+        img = img + rng.standard_normal((h, w)) * noise_sigma
+    return np.clip(img, 0, 255), theta
+
+
+def random_flax_variables(net, seed: int, gains=None) -> dict:
+    """Seeded Flax-layout variables (numpy, nested) for the architecture of
+    ``net`` (a port net with ``flax_modules()``): kernels N(0, 1 / fan_in)
+    (times ``gains[path]`` for the Flax module paths it names), biases
+    N(0, 0.05), BatchNorm scales U(0.5, 1.5), biases N(0, 0.1), running
+    means N(0, 0.1) and variances U(0.5, 2)."""
+    from ..models.weights import flatten, to_flax, unflatten
+    rng = np.random.default_rng(seed)
+    gains = gains or {}
+    flat = flatten(to_flax(net))
+    for key in sorted(flat):
+        shape = flat[key].shape
+        coll, *path, leaf = key.split("/")
+        if leaf == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            v = rng.standard_normal(shape) * gains.get("/".join(path), 1.0) \
+                / np.sqrt(fan_in)
+        elif leaf == "scale":
+            v = rng.uniform(0.5, 1.5, shape)
+        elif leaf == "var":
+            v = rng.uniform(0.5, 2.0, shape)
+        elif leaf == "mean" or coll == "params" and "BatchNorm" in path[-1]:
+            v = rng.normal(0.0, 0.1, shape)
+        else:                                        # conv / dense bias
+            v = rng.normal(0.0, 0.05, shape)
+        flat[key] = v.astype(np.float32)
+    return unflatten(flat)
+
+
+# the minutiae nets' last deconv at 4x: seeded nets then put peaks above the
+# rolled threshold (0.15) at every width, and every print yields minutiae
+MINUTIAE_GAINS = {"ConvTranspose_0": 4.0}
+
+
+def random_bundle_variables(seed: int, nf_enh: int = 16, nf_minu: int = 64,
+                            widths=(32, 64, 128, 256),
+                            patch_types=(2, 8, 11)) -> dict:
+    """Seeded Flax-layout variables of every net of a ModelBundle, keyed by
+    the config field that names its weight file (full widths by default)."""
+    from ..models.compnet import CompNet
+    from ..models.descriptor_net import DescriptorNet
+    from ..models.enhancement import EnhancementAEC
+    from ..models.minutiae_net import MinutiaeAEC, MinutiaeAEC64
+    nets = {"EnhancementModel": EnhancementAEC(nf_enh),
+            "MinutiaeExtractionModelLatentSTFT": MinutiaeAEC(nf_minu),
+            "MinutiaeExtractionModel": MinutiaeAEC(nf_minu),
+            "MinutiaeExtractionModelRolled": MinutiaeAEC64(nf_minu),
+            "DimensionalityReductionModel": CompNet()}
+    for pt in patch_types:
+        nets[f"DescriptorModelPatch{pt}"] = DescriptorNet(64, widths)
+    return {key: random_flax_variables(
+                net, seed + i, MINUTIAE_GAINS if "Minutiae" in key else None)
+            for i, (key, net) in enumerate(nets.items())}
+
+
+def write_bundle_npz(directory: str, variables: dict) -> dict:
+    """Each net's variables as ``directory/<field>.npz``; -> {config
+    field: path}."""
+    import os
+    from ..models.weights import save_npz
+    os.makedirs(directory, exist_ok=True)
+    paths = {}
+    for key, tree in variables.items():
+        paths[key] = os.path.join(directory, key + ".npz")
+        save_npz(paths[key], tree)
+    return paths

@@ -36,8 +36,24 @@ for name in ("config", "scripts.exp_screen_mfu",
              "templates.legacy_codec", "ops.pq", "models.compnet",
              "pipeline.models_bundle", "pipeline.postprocess",
              "parallel.manifest", "parallel.mesh", "parallel.distributed",
-             "parallel.sharding"):
+             "parallel.sharding", "models.weights", "models.enhancement",
+             "models.minutiae_net", "models.descriptor_net", "ops.gaussian",
+             "ops.contrast", "ops.fft", "ops.morphology", "ops.maps",
+             "ops.minutiae", "ops.patches", "pipeline.latent",
+             "pipeline.rolled", "utils.image_io", "utils.precision"):
     assert "msu_latentafis_tpu_torch." + name in sys.modules, name
+from msu_latentafis_tpu_torch.config import AfisConfig
+from msu_latentafis_tpu_torch.pipeline import RolledFeatureExtractor
+from msu_latentafis_tpu_torch.utils.synthetic import (
+    random_bundle_variables, render_ridge_image, write_bundle_npz)
+import tempfile
+with tempfile.TemporaryDirectory() as d:
+    paths = write_bundle_npz(d, random_bundle_variables(
+        1, nf_enh=4, nf_minu=8, widths=(8, 8, 8, 8)))
+    ext = RolledFeatureExtractor(config=AfisConfig(**paths), device="cpu")
+t = ext.extract(render_ridge_image(rng, 160, 176)[0])
+assert len(t.minu_template[0].minutiae) > 0 and len(t.texture_template) == 1
+assert set(ext.timings) == {"cropping", "minutiae", "descriptors", "texture"}
 from msu_latentafis_tpu_torch.models.compnet import CompNet
 from msu_latentafis_tpu_torch.ops.pq import pq_encode
 from msu_latentafis_tpu_torch.pipeline import ModelBundle

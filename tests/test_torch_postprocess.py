@@ -81,6 +81,59 @@ def test_code_flip_bound_measures_the_gap():
     assert pq.code_flip_bound(des, cb, a, a).shape == (0, 2)
 
 
+def _index_order_codes(x, cb):
+    """Codes of the expansion summed in index order, each product and sum
+    its own rounding: another summation order than the batched product's."""
+    xx = (x[..., 0] * x[..., 0])[:, :, None]
+    dot = (2.0 * x[..., None, 0]) * cb[:, None, :, 0]
+    cc = cb[..., 0] * cb[..., 0]
+    for k in range(1, x.shape[-1]):
+        xx = xx + (x[..., k] * x[..., k])[:, :, None]
+        dot = dot + (2.0 * x[..., None, k]) * cb[:, None, :, k]
+        cc = cc + cb[..., k] * cb[..., k]
+    return torch.argmin((xx - dot) + cc[:, None, :], dim=2)
+
+
+def test_tie_bound_covers_another_summation_order():
+    """Wherever another summation order picks another code than the CPU
+    path, the CPU path's two best distances lie within ``tie_bound``: the
+    card's refine catches every entry whose code could differ."""
+    rng = np.random.default_rng(40)
+    cb = torch.as_tensor(syn.random_codebook(rng), dtype=torch.float32)
+    x = torch.as_tensor(syn.random_descriptors(rng, 20000)) \
+        .reshape(-1, 16, 6).transpose(0, 1).contiguous()
+    a = torch.arange(500) % 256
+    x[:, :500] = (cb[:, a] + cb[:, (a + 1) % 256]) / 2     # near ties
+    d2 = pq._distances(x, cb)
+    codes = torch.argmin(d2, dim=2)
+    first, tied = pq._rank(d2, x)            # the card's ranking pass
+    assert torch.equal(first[~tied], codes[~tied])
+    other = _index_order_codes(x, cb)
+    differ = other != codes
+    assert differ.any() and tied[differ].all()
+    assert tied.float().mean() < 0.05
+
+
+def test_refine_writes_the_cpu_codes():
+    """The card's refine, run on CPU tensors: wrong codes at the tied
+    entries come back as the CPU path's; a batch of one row gives that
+    row's codes within a larger batch."""
+    rng = np.random.default_rng(41)
+    cb = torch.as_tensor(syn.random_codebook(rng), dtype=torch.float32)
+    x = torch.as_tensor(syn.random_descriptors(rng, 3000)) \
+        .reshape(-1, 16, 6).transpose(0, 1).contiguous()
+    want = pq.assign_rows(x, cb)
+    out = want.clone()
+    subs = torch.tensor([0, 0, 3, 15, 15])
+    rows = torch.tensor([5, 2999, 7, 0, 1])
+    out[subs, rows] = (out[subs, rows] + 1) % 256
+    pq._refine(x, cb, out, subs, rows)
+    assert torch.equal(out, want)
+    for r in (0, 17, 2999):
+        assert torch.equal(pq.assign_rows(x[:, r:r + 1], cb)[:, 0],
+                           want[:, r])
+
+
 @pytest.mark.parametrize("far", [False, True])
 def test_train_codebook_steps_equal_jax(far):
     """From the point initialization of train_codebook(seed=3), every Lloyd
