@@ -144,7 +144,26 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      latent TF_C file (its minutiae template in each of 28 slots),
      post-processed, and matched against the 8 prints with ``match
      -ldir`` (every print's own template at rank 1) and ``match -l`` for
-     the first (rank 1, its correspondence files).
+     the first (rank 1, its correspondence files);
+  13. latent extraction on the card: 4 latents of 800 x 768 (NIST SD27's
+     size), partial low-contrast crops of phase 12's 832 x 768 prints,
+     written as BMP and PNG; phase 12's seeded weights with a saturating
+     pass-through standing in for the enhancement net (seeded autoencoder
+     weights output noise and leave the mask empty);
+     ``cli.main(["extract-latent", ...])``: every latent gives 28 minutiae
+     templates and a texture template (so a non-empty mask), no
+     ``extraction FAILED``, the 7 sets' sizes and each latent's stage
+     seconds printed, one latent again with EXTRACT_SYNC_TIMINGS=1; the
+     classical stages on the card against the CPU on the same inputs (the
+     STFT x 3, the dictionary maps, SSIM, the block mask, the Gabor plan
+     and pair), each within its bound from its sums and every differing
+     decision at a counted near tie; the central 400 x 384 of one latent
+     through the whole extractor on both (masks, the five source sets'
+     minutiae but for near ties of their heatmaps, the consensus sets but
+     for near ties of the vote); then ``match
+     -ldir`` of the 4 latents against phase 12's enrolled prints, every
+     score finite, each mate's rank and score printed (seeded nets: not
+     asserted).
 The kernels' JSON record takes each kernel's launches from the path that
 runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 6) and its numbers from the same path's shapes and data: means per launch
@@ -2733,6 +2752,436 @@ def phase_extract(cb, card, workdir, device="cuda"):
         f"{n_corr} correspondence files, on {card}")
 
 
+LATENT_MATES = (4, 5, 6, 7)   # phase 12's prints the latents are cropped from
+DICT_GAP = 4 * 1024 * U32     # dictionary similarity, card against CPU
+
+
+def stft_bound(padded):
+    """Per pixel of the STFT reconstruction of one padded image, card
+    against CPU: twice (4 n + 4096) u (four length-64 transform passes, the
+    4,096-term energy sum) times the overlap-add of each windowed patch's
+    term magnitudes, bounded by its unit spectrum's l1 norm over 64^2."""
+    import torch
+    from msu_latentafis_tpu_torch.ops import fft
+    x = torch.as_tensor(padded, device="cpu")[None]
+    band, weight = fft._stft_tables("cpu")
+    bh, bw = (x.shape[1] - 64) // 16, (x.shape[2] - 64) // 16
+    p = x.unfold(1, 64, 16).unfold(2, 64, 16)[:, :bh, :bw] \
+        .reshape(1, bh * bw, 64, 64)
+    p = p - fft.median(p.reshape(1, bh * bw, -1), dim=-1)[..., None, None]
+    spec = (torch.fft.fft2(p.double()) * band).abs()
+    unit = spec / (spec.square().sum(dim=(-2, -1), keepdim=True).sqrt()
+                   + 1e-4)
+    per = (unit.sum(dim=(-2, -1)) / 64 ** 2)[..., None, None] \
+        * weight.double()
+    sums = fft.overlap_add(per, x.shape[1], x.shape[2], bh, bw)[0]
+    return 2 * (4 * 64 + 4096) * U32 * sums
+
+
+def ssim_tol() -> float:
+    """The blurred SSIM block quality, card against CPU: each patch pair's
+    4,096-term dot after two 4,096-term normalizations within 3 * 4,096 u,
+    twice, spread by the 4 x 4 block weights; the 5 x 5 blur's sums."""
+    from msu_latentafis_tpu_torch.ops import maps
+    return 2 * 3 * 4096 * U32 * float(maps._ssim_weight(4, 4.0).sum()) \
+        + 2 * 25 * U32
+
+
+def reach(mask, r: int):
+    import numpy as np
+    from scipy.ndimage import binary_dilation
+    return binary_dilation(mask, np.ones((2 * r + 1, 2 * r + 1), bool)) \
+        if mask.any() else mask
+
+
+def gabor_near_ties(dir_map, fre_map, shape):
+    """Pixels whose Gabor bucket decision lies within the zoom products'
+    bound (f32, (blkH + blkW + 2) u ||My|| ||Mx|| max|a|, twice): the
+    degrees within it of an integer, or f * 100 of k + 1/2."""
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.ops import gabor
+    c, s, f = (a.double() for a in gabor.plan_fields(dir_map, fre_map,
+                                                     shape, 16, "cpu"))
+    norm = lambda m: float(np.abs(m).sum(axis=1).max())  # noqa: E731
+    e = 2 * (sum(dir_map.shape) + 2) * U32 \
+        * norm(gabor._zoom_mat(dir_map.shape[0], 16)) \
+        * norm(gabor._zoom_mat(dir_map.shape[1], 16))
+    r = torch.sqrt(c * c + s * s).clamp(min=1e-30)
+    d_deg = (2 * e / (2 * r) + 4 * U32 * np.pi) * 180 / np.pi + 180 * U32
+    deg = torch.atan2(s, c) * 0.5 / np.pi * 180
+    near = (deg - deg.round()).abs() <= d_deg
+    f100 = f * 100 - 0.5
+    near |= (f100 - f100.round()).abs() <= \
+        e * float(np.abs(fre_map).max()) * 100 + 100 * U32
+    return near.numpy()
+
+
+def latent_stages(bundle, ext, img, device):
+    """The latent extractor's stages up to the Gabor pair on ``device``
+    (the stage functions LatentFeatureExtractor.extract calls, in its
+    order), each intermediate returned."""
+    import math
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.ops import contrast, fft, gabor, maps
+    d = torch.as_tensor(img, device=device)
+    out = {"texture": fft.fast_cartoon_texture(d),
+           "contrast": contrast.local_contrast_enhancement_gaussian(d)}
+    out["stft3"] = fft.stft_enhance_batch(torch.stack(
+        [out["texture"], d, out["contrast"]]))
+    out["aec"] = bundle.enhance(out["stft3"][0])
+    out["maps"] = [a.cpu().numpy() for a in maps.quality_ssim_fused(
+        out["aec"], out["stft3"][0], ext.dict_all, ext.dict_ori,
+        ext.dict_spacing)]
+    h, w = img.shape
+    plan = gabor.gabor_plan(out["maps"][1] + math.pi / 2, out["maps"][2],
+                            (h, w), mask=np.ones((h, w), np.uint8),
+                            device=device)
+    out["gabor"] = gabor.gabor_apply_planned_multi(
+        [out["contrast"], out["texture"]], plan)
+    return out
+
+
+def block_mask(q, ssim_q):
+    import numpy as np
+    from msu_latentafis_tpu_torch.ops import maps, morphology
+    blk = morphology.binary_closing(q > 0.45, np.ones((3, 3), bool))
+    blk = morphology.binary_opening(blk, np.ones((3, 3), bool))
+    return maps._ssim_mask_host(ssim_q, thr=0.2) * blk.astype(np.int32)
+
+
+def check_latent_stages(card_b, cpu_b, ext, img, device):
+    """The latent extractor's classical stages on the card against the CPU,
+    on the CPU's inputs at each stage: the STFT x 3 (reconstruction and
+    output within their bounds), the dictionary maps and SSIM, the block
+    mask, the Gabor plan and pair. -> ({stage: |card - CPU| over its
+    bound}, near-tie counts); raises on a stage outside its bound or a
+    decision that differs away from a near tie."""
+    import math
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.ops import fft, gabor, maps
+    h, w = img.shape
+    cpu = latent_stages(cpu_b, ext["cpu"], img, "cpu")
+    worst = {}
+    stack = torch.stack([cpu["texture"], torch.as_tensor(img),
+                         cpu["contrast"]])
+    got = fft.stft_enhance_batch(stack.to(device)).cpu()
+    for i, name in enumerate(("texture", "raw", "contrast")):
+        padded = np.pad(stack[i].numpy(), 24)
+        b = stft_bound(padded)
+        rec = {w_: fft._stft_core(torch.as_tensor(padded, device=d_)[None])
+               [0].cpu() for w_, d_ in (("card", device), ("cpu", "cpu"))}
+        diff = (rec["card"] - rec["cpu"]).abs()
+        if (diff[b == 0] > 0).any():
+            raise AssertionError(f"STFT {name}: a zero-bound pixel differs")
+        worst[f"stft rec {name}"] = float((diff / b)[b > 0].max())
+        inner = rec["cpu"][24:24 + h, 24:24 + w]
+        d_rec = float(b[24:24 + h, 24:24 + w].max())
+        std = float(inner.std(correction=0))
+        d_std = abs(float(rec["card"][24:24 + h, 24:24 + w]
+                          .std(correction=0)) - std)
+        if d_std > d_rec + 2 * inner.numel() * U32 * std:
+            raise AssertionError(f"STFT {name}: std differs by {d_std}")
+        tol = 14 * 2 * d_rec / std + 128 * d_std / std + 8 * 255 * U32
+        worst[f"stft {name}"] = float((got[i] - cpu["stft3"][i]).abs().max()
+                                      / tol)
+    aec = cpu["aec"]
+    card_maps = [a.cpu().numpy() for a in maps.quality_ssim_fused(
+        aec.to(device), cpu["stft3"][0].to(device), ext["card"].dict_all,
+        ext["card"].dict_ori, ext["card"].dict_spacing)]
+    q_c, d_c, f_c, s_c = cpu["maps"]
+    simi = maps.dict_similarity(aec.to(device), ext["card"].dict_all)
+    top = simi.topk(2, dim=1).values.cpu()
+    blk = q_c.shape
+    near = np.zeros(blk, bool)
+    near[1:-1, 1:-1] = ((top[:, 0] - top[:, 1]) <= DICT_GAP).numpy() \
+        .reshape(blk[0] - 2, blk[1] - 2)
+    worst["quality"] = float(np.abs(card_maps[0] - q_c).max()
+                             / (DICT_GAP + 25 * U32))
+    keep = ~reach(near, 6)
+    worst["direction"] = float(np.abs(card_maps[1] - d_c)[keep].max()
+                               / (2 * 13 * U32 * 2 * np.pi))
+    keep = ~reach(near, 1)
+    worst["frequency"] = float(np.abs(card_maps[2] - f_c)[keep].max()
+                               / (2 * 9 * U32 * float(np.abs(f_c).max())))
+    worst["ssim"] = float(np.abs(card_maps[3] - s_c).max() / ssim_tol())
+    m_card, m_cpu = block_mask(card_maps[0], card_maps[3]), \
+        block_mask(q_c, s_c)
+    near_thr = (np.abs(q_c - 0.45) <= DICT_GAP + 25 * U32) \
+        | (np.abs(s_c - 0.2) <= ssim_tol())
+    odd_mask = m_card != m_cpu
+    if (odd_mask & ~reach(near_thr, 2)).any():
+        raise AssertionError("block masks differ away from a near tie")
+    pd = d_c + math.pi / 2
+    plans = {w_: gabor.gabor_plan(pd, f_c, (h, w),
+                                  mask=np.ones((h, w), np.uint8),
+                                  device=d_) for w_, d_ in
+             (("card", device), ("cpu", "cpu"))}
+    odd_px = ((plans["card"][0].cpu() != plans["cpu"][0])
+              | (plans["card"][1].cpu() != plans["cpu"][1])).numpy()
+    gnear = gabor_near_ties(pd, f_c, (h, w))
+    if (odd_px & ~gnear).any():
+        raise AssertionError("Gabor buckets differ away from a near tie")
+    plan = plans["cpu"]
+    gcard = gabor.gabor_apply_planned_multi(
+        [cpu["contrast"].to(device), cpu["texture"].to(device)],
+        (plan[0].to(device), plan[1].to(device), 3, 30))
+    taps = gabor.gabor_taps(plan)
+    for i, name in enumerate(("contrast", "texture")):
+        src = (cpu["contrast"], cpu["texture"])[i]
+        p = torch.nn.functional.unfold(src[None, None], 19, padding=9)[0].T
+        e = 2 * 361 * U32 * float((p.abs() * taps.abs()).sum(dim=1).max())
+        enh = torch.where(plan[1].reshape(-1), (p * taps).sum(dim=1), 0.0)
+        tol = 255.0 * 3 * e / float(enh.max() - enh.min()) + 8 * 255 * U32
+        worst[f"gabor {name}"] = float((gcard[i].cpu() - cpu["gabor"][i])
+                                       .abs().max() / tol)
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"a latent stage on the card outside its bound "
+                             f"of the CPU's: {worst}")
+    return worst, (f"dictionary near ties {int(near.sum())} blocks, block "
+                   f"masks differ at {int(odd_mask.sum())} of {m_cpu.size} "
+                   f"(near-threshold blocks {int(near_thr.sum())}), Gabor "
+                   f"buckets differ at {int(odd_px.sum())} pixels "
+                   f"({int(gnear.sum())} near ties)")
+
+
+def consensus_near_ties(sets_a, sets_b):
+    """Positions (x, y) of the minutiae in a pair that the consensus vote
+    (get_common_minutiae: within 10 px and an orientation difference, mod
+    pi, under pi / 6) decides within its rounding: the pair's orientation
+    difference within twice the largest difference of a minutia's
+    orientation between runs a and b (the same positions) of pi / 6."""
+    import numpy as np
+    d_ori = 0.0
+    for ma, mb in zip(sets_a, sets_b):
+        kb = {(int(r[0]), int(r[1])): r[2] for r in mb}
+        d_ori = max([d_ori] + [abs(r[2] - kb[(int(r[0]), int(r[1]))])
+                               for r in ma if (int(r[0]), int(r[1])) in kb])
+    allm = np.concatenate([np.asarray(m, np.float64).reshape(-1, 4)
+                           for m in sets_b])
+    dx = allm[:, None, 0] - allm[None, :, 0]
+    dy = allm[:, None, 1] - allm[None, :, 1]
+    od = np.abs(allm[:, None, 2] - allm[None, :, 2])
+    od = np.where(od > np.pi / 2, np.pi - od, od)
+    near = (dx * dx + dy * dy <= 100.0) & \
+        (np.abs(od - np.pi / 6) <= 2 * d_ori + 8 * U32 * np.pi)
+    i, j = np.nonzero(near)
+    return allm[np.unique(np.concatenate([i, j])), :2]
+
+
+def check_latent_extractor(card_b, cpu_b, ext, img, device) -> str:
+    """One latent through the whole extractor on the card and the CPU: the
+    masks equal but for near-threshold blocks, each of the five source
+    sets' minutiae equal but for entries within 25 px of a near tie of its
+    heatmap (each run's own), the consensus sets, where the sources are
+    equal, equal but within 10 px of a near tie of the vote. -> a summary;
+    raises otherwise."""
+    import numpy as np
+    tpl = {w_: e_.extract(img) for w_, e_ in ext.items()}
+    run = {"card": latent_stages(card_b, ext["card"], img, device),
+           "cpu": latent_stages(cpu_b, ext["cpu"], img, "cpu")}
+    q_c, s_c = run["cpu"]["maps"][0], run["cpu"]["maps"][3]
+    near_thr = (np.abs(q_c - 0.45) <= DICT_GAP + 25 * U32) \
+        | (np.abs(s_c - 0.2) <= ssim_tol())
+    mask = {w_: tpl[w_].minu_template[0].mask for w_ in tpl}
+    if not np.array_equal(mask["card"], mask["cpu"]):
+        odd = block_mask(*(run["card"]["maps"][i] for i in (0, 3))) != \
+            block_mask(q_c, s_c)
+        if (odd & ~reach(near_thr, 2)).any():
+            raise AssertionError("latent masks differ away from a near tie")
+    sources = [(0, lambda r: r["stft3"][1], 0.05),
+               (0, lambda r: r["stft3"][2], 0.10), (1, lambda r: r["aec"], 0.25),
+               (1, lambda r: r["gabor"][0], 0.25),
+               (1, lambda r: r["gabor"][1], 0.25)]
+    diffs, per_set = 0, []
+    for s, (net, image, thr) in enumerate(sources):
+        hm = {w_: b.minutiae_heatmap(net, image(run[w_])).cpu()
+              for w_, b in (("card", card_b), ("cpu", cpu_b))}
+        ties = near_tie_pixels(hm["card"], hm["cpu"], thr)
+        ma, mb = (tpl[w_].minu_template[4 * s].minutiae for w_ in tpl)
+        diffs += explain_minutiae(ma, mb, ties)
+        per_set.append((len(ma), len(mb)))
+    near_pairs = consensus_near_ties(
+        [tpl["card"].minu_template[4 * s].minutiae for s in range(5)],
+        [tpl["cpu"].minu_template[4 * s].minutiae for s in range(5)])
+    odd_consensus = 0
+    for s in (5, 6):
+        ma, mb = (tpl[w_].minu_template[4 * s].minutiae for w_ in tpl)
+        per_set.append((len(ma), len(mb)))
+        if diffs:                # differing sources: counted above
+            continue
+        ka = {(int(r[0]), int(r[1])) for r in ma}
+        kb = {(int(r[0]), int(r[1])) for r in mb}
+        for x, y in ka ^ kb:
+            if not len(near_pairs) or np.hypot(near_pairs[:, 0] - x,
+                                               near_pairs[:, 1] - y
+                                               ).min() > 10.0:
+                raise AssertionError(f"consensus set {s}: ({x}, {y}) "
+                                     f"differs with equal sources and no "
+                                     f"near tie within 10 px")
+            odd_consensus += 1
+    des_err = 0.0
+    for ta, tb in zip(*(tpl[w_].minu_template for w_ in ("card", "cpu"))):
+        ka = {(int(r[0]), int(r[1])): i for i, r in enumerate(ta.minutiae)}
+        for j, r in enumerate(tb.minutiae):
+            i = ka.get((int(r[0]), int(r[1])))
+            if i is not None:
+                des_err = max(des_err, max(float(np.abs(x[i] - y[j]).max())
+                                           for x, y in zip(ta.des, tb.des)))
+    tex = [len(t.texture_template[0].minutiae) if t.texture_template else 0
+           for t in tpl.values()]
+    return (f"minutiae per set {per_set}, {diffs} minutiae of the five "
+            f"source sets differ, each within 25 px of a near tie; "
+            f"{odd_consensus} consensus minutiae differ, each within 10 px "
+            f"of one of {len(near_pairs)} near-tie pair members; texture "
+            f"rows {tex}; mask equal "
+            f"{np.array_equal(mask['card'], mask['cpu'])}; the largest "
+            f"descriptor difference of common minutiae {des_err:.3e} (their "
+            f"images differ by the stages' roundings)")
+
+
+def phase_latent(cb, card, workdir, device="cuda"):
+    """Phase 13: latents from image files to final .dat on the card through
+    ``extract-latent``, the classical stages and one latent's whole
+    extraction against the CPU, then the latents against phase 12's
+    enrolled prints."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch import cli
+    from msu_latentafis_tpu_torch.config import AfisConfig
+    from msu_latentafis_tpu_torch.pipeline import (LatentFeatureExtractor,
+                                                   ModelBundle)
+    from msu_latentafis_tpu_torch.pipeline.latent import adjust_image_size
+    from msu_latentafis_tpu_torch.templates import read_final_template
+    from msu_latentafis_tpu_torch.utils import image_io
+    from msu_latentafis_tpu_torch.utils.synthetic import (
+        PassThroughEnhancement, latent_image)
+
+    cfg_path = os.path.join(workdir, "afis.config")
+    cfg = AfisConfig.load(cfg_path)
+    rng = np.random.default_rng(13)
+    ldir = os.path.join(workdir, "latent_img")
+    os.makedirs(ldir)
+    lats = []
+    for k, i in enumerate(LATENT_MATES):
+        rolled = image_io.read_grey(os.path.join(
+            workdir, "img", f"p{i}." + ("bmp" if i % 2 else "png")))
+        img = latent_image(rng, np.asarray(rolled, np.uint8), *LATENT_SIZE)
+        f = os.path.join(ldir, f"l{k}." + ("bmp" if k % 2 else "png"))
+        (image_io.write_bmp if k % 2 else image_io.write_png)(f, img)
+        lats.append(adjust_image_size(img.astype(np.float32)))
+
+    # seeded autoencoder weights output noise (dictionary quality ~0.03,
+    # under the mask's 0.45 everywhere): a saturating pass-through stands
+    # in for a trained net, so the mask, Gabor and texture stages see ridges
+    init = ModelBundle.initialize
+
+    def with_stand_in(config=None, device="cuda", **kw):
+        b = init(config, device=device, **kw)
+        b.enhancement = PassThroughEnhancement().to(b.device)
+        return b
+
+    # (a) extract-latent over the directory, on the card
+    tdir = os.path.join(workdir, "latent_dat")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    ModelBundle.initialize = with_stand_in
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["extract-latent", "--idir", ldir, "--tdir", tdir,
+                           "--config", cfg_path, "--device", device])
+    finally:
+        ModelBundle.initialize = init
+    cli_s = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"[latent cli] {line}")
+    if rc != 0 or "extraction FAILED" in buf.getvalue():
+        raise AssertionError(f"extract-latent: rc {rc}")
+    sizes = {}
+    for k in range(len(LATENT_MATES)):
+        t = read_final_template(os.path.join(tdir, f"l{k}.dat"), "latent")
+        if len(t.minu_template) != ENROLL_T or len(t.texture_template) != 1 \
+                or len(t.texture_template[0].minutiae) <= 3:
+            raise AssertionError(f"l{k}: {len(t.minu_template)} minutiae "
+                                 f"templates, {len(t.texture_template)} "
+                                 f"texture templates")
+        sizes[f"l{k}"] = ([len(t.minu_template[4 * s].minutiae)
+                           for s in range(7)],
+                          len(t.texture_template[0].minutiae))
+    log(f"[latent] extract-latent on the card ({len(lats)} latents of "
+        f"{LATENT_SIZE[0]} x {LATENT_SIZE[1]}, seeded full-width weights, "
+        f"the stand-in enhancement): {cli_s:.2f} s (the first latent builds "
+        f"cuDNN's plans); (the 7 sets' sizes, texture rows) per latent "
+        f"{sizes} on {card}")
+
+    card_b = with_stand_in(cfg, device=device)
+    cpu_b = with_stand_in(cfg, device="cpu")
+    ext = {"card": LatentFeatureExtractor(models=card_b),
+           "cpu": LatentFeatureExtractor(models=cpu_b)}
+    ext["card"].extract(lats[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ext["card"].extract(lats[1])
+    async_s = time.perf_counter() - t0
+    os.environ["EXTRACT_SYNC_TIMINGS"] = "1"
+    try:
+        t0 = time.perf_counter()
+        ext["card"].extract(lats[1])
+        sync_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("EXTRACT_SYNC_TIMINGS")
+    log(f"[latent] l1 warm: {async_s:.3f} s; with EXTRACT_SYNC_TIMINGS=1 "
+        f"{sync_s:.3f} s, stage seconds "
+        f"{ {k: round(v, 4) for k, v in ext['card'].timings.items()} }, "
+        f"diag {ext['card'].diag} on {card}")
+
+    # (b) the classical stages, card against CPU on the same inputs
+    t0 = time.perf_counter()
+    worst, counts = check_latent_stages(card_b, cpu_b, ext, lats[0], device)
+    log(f"[latent] classical stages at {LATENT_SIZE[0]} x {LATENT_SIZE[1]} "
+        f"({time.perf_counter() - t0:.1f} s), card against CPU on the same "
+        f"inputs, |card - CPU| over its bound: "
+        f"{ {k: round(v, 4) for k, v in worst.items()} }; {counts}, on "
+        f"{card}")
+
+    # (c) one latent through the whole extractor on the card and the CPU:
+    # the central 400 x 384 of l0 (a quarter of its area: the CPU's
+    # descriptor nets over a full latent's ~15,000 patches take minutes)
+    crop = lats[0][200:600, 192:576]
+    t0 = time.perf_counter()
+    summary = check_latent_extractor(card_b, cpu_b, ext, crop, device)
+    log(f"[latent] l0's central 400 x 384, whole extraction, card / CPU "
+        f"({time.perf_counter() - t0:.1f} s): {summary}, on {card}")
+
+    # (d) the latents against phase 12's enrolled prints
+    scores_dir = os.path.join(workdir, "latent_scores")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["match", "-ldir", tdir, "-g", os.path.join(
+            workdir, "dat"), "-c", os.path.join(workdir, "codebook.dat"),
+            "-s", scores_dir, "--device", device])
+    if rc != 0:
+        raise AssertionError(f"match -ldir: rc {rc}")
+    ranks = []
+    for k, i in enumerate(LATENT_MATES):
+        with open(os.path.join(scores_dir, f"l{k}.csv")) as f:
+            scores = dict((n, float(v)) for n, v in
+                          (r.split(",") for r in f.read().split()))
+        if not scores or not all(np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"l{k}: scores {scores}")
+        order = sorted(scores, key=lambda n: -scores[n])
+        ranks.append((f"l{k}", f"p{i}", order.index(f"p{i}") + 1,
+                      round(scores[f"p{i}"], 3), round(scores[order[0]], 3)))
+    log(f"[latent] match -ldir of the {len(ranks)} latents against the "
+        f"{len(scores)} enrolled prints in {time.perf_counter() - t0:.2f} s, "
+        f"every score finite; (latent, mate, mate's rank, its score, the "
+        f"best score) {ranks} (seeded nets: not asserted), on {card}")
+
+
 def launch_split(label, fn, sym=None, reps: int = 20) -> list:
     """Host time per call (the enqueue of ``reps`` back-to-back calls, no
     synchronize) and device time per launch (torch.profiler over another
@@ -2918,7 +3367,11 @@ def main() -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_root) as work:
         phase_extract(cb, card, work)
-    log(f"[phase 12] {time.perf_counter() - t0:.1f} s")
+        log(f"[phase 12] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_latent(cb, card, work)
+    log(f"[phase 13] {time.perf_counter() - t0:.1f} s")
     # each kernel's launches and numbers on the main path that runs it: the
     # dense match (phase 3), 100,000-entry serving in its layout or with
     # normalize=True (phase 5), the standalone filter path (phase 6), the

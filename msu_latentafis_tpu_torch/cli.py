@@ -1,5 +1,7 @@
-"""Command-line interface of the port: rolled enrollment and matching.
+"""Command-line interface of the port: extraction and matching.
 
+    python -m msu_latentafis_tpu_torch.cli extract-latent (--i IMG | --idir DIR) \
+        [--tdir DIR] [--config FILE] [--device cpu]
     python -m msu_latentafis_tpu_torch.cli extract-rolled --idir DIR \
         [--tdir DIR] [--N1 N] [--N2 N] [--layout flat|longitudinal|msp|n2n] \
         [--config FILE] [--device cpu]
@@ -7,6 +9,16 @@
         -g GALLERY_DIR [-c CODEBOOK.dat] [-s SCORE_DIR] [--config FILE] \
         [--device cpu] [--trace DIR] \
         [--rerank M [--prescreen K --prescreen-lt 64 --prescreen-t 1]]
+
+``extract-latent`` is the reference's latent extraction
+(extraction_latent.py:321-330) as the JAX package's runs it: the image
+``--i``, or each ``*.bmp`` and ``*.png`` of ``--idir`` (sorted) whose
+``TDIR/<stem>.dat`` does not exist yet, goes through the
+``LatentFeatureExtractor``, is written as TF_C, read back, reduced by the
+CompNet and written as the final latent ``.dat`` (28 minutiae templates
+and a texture template, float descriptors); an image larger than 1,000 px
+both ways gives an empty ``.dat``. ``--tdir`` defaults to the config's
+``LatentTemplateDirectory``.
 
 ``extract-rolled`` is the reference's rolled extraction
 (extraction_rolled.py:278-286) as the JAX package's runs it: each image of
@@ -163,6 +175,61 @@ def cmd_match(args) -> int:
     return 0
 
 
+def _extract_and_write(extractor, f: str, out: str, finish,
+                       ppi: int = 500) -> bool:
+    """Extract one image, print its seconds and stage seconds, then
+    ``finish(template)`` writes it; an image that fails prints
+    ``extraction FAILED`` and the run goes on, as the reference's does."""
+    timer = PhaseTimer()
+    try:
+        with timer.phase("extract"):
+            template = extractor.extract_file(f, ppi=ppi)
+    except Exception as e:
+        print(f"{f}: extraction FAILED ({type(e).__name__}: {e}); skipping")
+        count("extraction failures")
+        return False
+    print(f"{f}: extracted in {timer.buckets['extract']:.2f}s "
+          f"({ {k: round(v, 4) for k, v in extractor.timings.items()} })")
+    with timer.phase("postprocess"):
+        finish(template)
+    count("extracted")
+    event("extract", image=f, template=out, **extractor.timings,
+          postprocess=timer.buckets["postprocess"])
+    return True
+
+
+def cmd_extract_latent(args) -> int:
+    from .pipeline import LatentFeatureExtractor, ModelBundle
+    from .pipeline.postprocess import compress_template
+    from .templates import (read_template, write_final_latent_template,
+                            write_template)
+    cfg = load_config(args.config)
+    tdir = args.tdir or cfg.LatentTemplateDirectory
+    if not tdir:
+        raise SystemExit("extract-latent: give --tdir, or a config with "
+                         "LatentTemplateDirectory")
+    os.makedirs(tdir, exist_ok=True)
+    models = ModelBundle.initialize(cfg, device=args.device)
+    extractor = LatentFeatureExtractor(models=models)
+    files = [args.i] if args.i else sorted(
+        glob.glob(os.path.join(args.idir, "*.bmp"))
+        + glob.glob(os.path.join(args.idir, "*.png")))
+    for f in files:
+        out = os.path.join(tdir,
+                           os.path.splitext(os.path.basename(f))[0] + ".dat")
+        if not args.i and os.path.exists(out):     # resume by skipping
+            continue
+
+        def finish(template, out=out):
+            write_template(out, template, is_latent=True)
+            t = read_template(out, is_latent=True)
+            if t is not None:     # None: larger than max_size both ways
+                compress_template(models, t)
+            write_final_latent_template(out, t)
+        _extract_and_write(extractor, f, out, finish)
+    return 0
+
+
 def cmd_extract_rolled(args) -> int:
     from .ops.pq import pq_encode
     from .pipeline import ModelBundle, RolledFeatureExtractor
@@ -184,18 +251,8 @@ def cmd_extract_rolled(args) -> int:
         out = os.path.join(tdir, name + ".dat")
         if os.path.exists(out):
             continue
-        timer = PhaseTimer()
-        try:
-            with timer.phase("extract"):
-                template = extractor.extract_file(f, ppi=ppi)
-        except Exception as e:    # skip and go on, as the reference does
-            print(f"{f}: extraction FAILED ({type(e).__name__}: {e}); "
-                  f"skipping")
-            count("extraction failures")
-            continue
-        print(f"{f}: extracted in {timer.buckets['extract']:.2f}s "
-              f"({ {k: round(v, 4) for k, v in extractor.timings.items()} })")
-        with timer.phase("postprocess"):
+
+        def finish(template, out=out):
             write_template(out, template, is_latent=False)
             t = read_template(out, is_latent=False)
             compress_template(models, t)
@@ -204,9 +261,7 @@ def cmd_extract_rolled(args) -> int:
                 t.texture_template[0].des = pq_encode(
                     t.texture_template[0].des, codebook, device=args.device)
             write_final_rolled_pq_template(out, t)
-        count("extracted")
-        event("extract", image=f, template=out, **extractor.timings,
-              postprocess=timer.buckets["postprocess"])
+        _extract_and_write(extractor, f, out, finish, ppi=ppi)
     return 0
 
 
@@ -214,6 +269,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(prog="afis-torch",
                                 description="latent AFIS on PyTorch/CUDA")
     sub = p.add_subparsers(dest="cmd", required=True)
+    pl = sub.add_parser("extract-latent", help="extract latent images to "
+                                               "final .dat files")
+    src = pl.add_mutually_exclusive_group(required=True)
+    src.add_argument("--i", help="one image")
+    src.add_argument("--idir", help="image directory (*.bmp, *.png)")
+    pl.add_argument("--tdir", help="template directory (default: the "
+                                   "config's LatentTemplateDirectory)")
+    pl.add_argument("--config", help="afis.config path (default: the first "
+                                     "afis.config from the working directory "
+                                     "up)")
+    pl.add_argument("--device", default="cuda",
+                    help="torch device (default cuda)")
+    pl.set_defaults(fn=cmd_extract_latent)
     pr = sub.add_parser("extract-rolled", help="enroll a directory of rolled "
                                                "prints as final .dat files")
     pr.add_argument("--idir", required=True, help="image directory")

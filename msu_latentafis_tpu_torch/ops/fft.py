@@ -1,13 +1,18 @@
-"""FFT-domain preprocessing: the cartoon-texture decomposition.
+"""FFT-domain preprocessing: cartoon-texture decomposition and STFT
+block enhancement.
 
-Counterpart of the JAX package's ``ops/fft.py``, its rolled half:
-``FastCartoonTexture`` (preprocessing.py:129-172) -- a Butterworth
-low-pass in radius^4, gradient-norm weighting, the texture residual
-clipped to [0, 255] around +/-20 -- and the block extraction the maps
-share. The filter runs through ``torch.fft`` with the same fftshift
-semantics (the JAX package's DFT-as-matmul form exists because the TPU's
-FFT was slow), the blocks through ``unfold``. ``stft_enhance`` and
-``overlap_add`` belong to the latent path.
+Counterpart of the JAX package's ``ops/fft.py``:
+- ``FastCartoonTexture`` (preprocessing.py:129-172): a Butterworth
+  low-pass in radius^4, gradient-norm weighting, the texture residual
+  clipped to [0, 255] around +/-20;
+- ``STFT`` enhancement (preprocessing.py:175-226): 64 x 64 patches at
+  stride 16, median subtraction, a ring band-pass for ridge spacings of
+  3 to 18 px, energy normalization, Gaussian-window overlap-add, the
+  output renormalized to about N(127, 14).
+The transforms run through ``torch.fft`` (the JAX package's DFT-as-matmul
+form exists because the TPU's FFT was slow), the blocks through
+``unfold`` and the overlap-add through ``fold``. ``median`` is
+``jnp.median``: the mean of the two middle values of an even count.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 BLOCK = 16
 PATCH = 64
@@ -82,3 +88,95 @@ def extract_blocks(img: torch.Tensor, patch: int = PATCH,
     bw = (w - patch) // stride + (1 if inclusive else 0)
     blocks = img.unfold(0, patch, stride).unfold(1, patch, stride)
     return blocks[:bh, :bw].reshape(bh * bw, patch, patch), bh, bw
+
+
+def median(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
+    """``jnp.median`` along ``dim``: for an even count the mean of the two
+    middle values, as 0.5 lo + 0.5 hi (``torch.median`` returns lo)."""
+    s = torch.sort(x, dim=dim).values
+    n = x.shape[dim]
+    m = s.narrow(dim, (n - 1) // 2, 1) * 0.5 + s.narrow(dim, n // 2, 1) * 0.5
+    return m if keepdim else m.squeeze(dim)
+
+
+def overlap_add(patches: torch.Tensor, h: int, w: int, bh: int, bw: int,
+                stride: int = BLOCK) -> torch.Tensor:
+    """Overlap-add [..., bh * bw, P, P] patches (row-major block order) onto
+    [..., h, w] canvases; the blocks must fit."""
+    lead = patches.shape[:-3]
+    p = patches.shape[-1]
+    cols = patches.reshape(-1, bh * bw, p * p).transpose(1, 2)
+    oh, ow = (bh - 1) * stride + p, (bw - 1) * stride + p
+    out = F.fold(cols, (oh, ow), p, stride=stride)[:, 0]
+    out = F.pad(out, [0, w - ow, 0, h - oh])
+    return out.reshape(*lead, h, w)
+
+
+def _bandpass(patch_size: int) -> np.ndarray:
+    half = patch_size // 2
+    x, y = np.meshgrid(np.arange(-half, half), np.arange(-half, half))
+    r = np.sqrt(x * x + y * y) + 1e-4
+    f_low = patch_size / 18.0   # RMAX
+    f_high = patch_size / 3.0   # RMIN
+    return (1.0 / (1 + (r / f_high) ** 4)) * (1.0 / (1 + (f_low / r) ** 4))
+
+
+def _stft_tables(device) -> tuple:
+    """(the band-pass, unshifted; the Gaussian window), f32 [64, 64]."""
+    half = PATCH // 2
+    x, y = np.meshgrid(np.arange(-half, half), np.arange(-half, half))
+    sigma = PATCH / 3.0
+    weight = np.exp(-(x * x + y * y) / (sigma * sigma)).astype(np.float32)
+    band = np.fft.ifftshift(_bandpass(PATCH).astype(np.float32))
+    return (torch.as_tensor(band, device=device),
+            torch.as_tensor(weight, device=device))
+
+
+def stft_patches(imgs: torch.Tensor):
+    """The windowed reconstructions of the block STFT filtering of padded
+    images [N, H, W]: every 64 x 64 patch (preprocessing.STFT's count,
+    the last fitting block dropped) less its median, band-passed, its
+    spectrum scaled to unit energy (over the full spectrum), transformed
+    back and windowed. -> ([N, bh * bw, 64, 64], bh, bw)."""
+    n_img, h, w = imgs.shape
+    band, weight = _stft_tables(imgs.device)
+    bh, bw = (h - PATCH) // BLOCK, (w - PATCH) // BLOCK
+    p = imgs.unfold(1, PATCH, BLOCK).unfold(2, PATCH, BLOCK)[:, :bh, :bw]
+    p = p.reshape(n_img, bh * bw, PATCH, PATCH)
+    p = p - median(p.reshape(n_img, bh * bw, -1), dim=-1)[..., None, None]
+    spec = torch.fft.fft2(p) * band
+    norm = torch.sqrt((spec.real.square() + spec.imag.square())
+                      .sum(dim=(-2, -1)))
+    spec = spec * (1.0 / (norm + 1e-4))[..., None, None]
+    return torch.fft.ifft2(spec).real * weight, bh, bw
+
+
+def _stft_core(imgs: torch.Tensor) -> torch.Tensor:
+    """The block STFT filtering of padded images [N, H, W], overlap-added
+    onto [N, H, W]."""
+    rec, bh, bw = stft_patches(imgs)
+    return overlap_add(rec, imgs.shape[-2], imgs.shape[-1], bh, bw)
+
+
+def stft_normalize(rec: torch.Tensor) -> torch.Tensor:
+    """Each [..., H, W] image less its median, over its population std
+    (``jnp.std``), to N(127, 14), clipped to [0, 255]."""
+    flat = rec.reshape(*rec.shape[:-2], -1)
+    med = median(flat, dim=-1)[..., None, None]
+    std = flat.std(dim=-1, correction=0)[..., None, None]
+    return torch.clamp((rec - med) / (std + 1e-6) * 14.0 + 127.0, 0.0, 255.0)
+
+
+def stft_enhance_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """STFT block enhancement of a batch [N, H, W] (H, W multiples of 16;
+    the latent path's three variants of one image) in one pass."""
+    imgs = torch.as_tensor(imgs, dtype=torch.float32)
+    h0, w0 = imgs.shape[-2:]
+    ovp = (PATCH - BLOCK) // 2
+    rec = _stft_core(F.pad(imgs, [ovp, ovp, ovp, ovp]))
+    return stft_normalize(rec[:, ovp:ovp + h0, ovp:ovp + w0])
+
+
+def stft_enhance(img: torch.Tensor) -> torch.Tensor:
+    """STFT block enhancement of a [H, W] image (H, W multiples of 16)."""
+    return stft_enhance_batch(torch.as_tensor(img)[None])[0]

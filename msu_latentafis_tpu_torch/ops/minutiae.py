@@ -134,29 +134,35 @@ def get_common_minutiae(minutiae_sets, thr: int = 3,
                         init_ind: int = 3) -> np.ndarray:
     """Cross-set consensus voting (extraction_latent.py:219-257): seed from
     set ``init_ind``, match by dist <= 10 and orientation difference < pi/6
-    (mod pi), first match wins; keep points seen in >= thr sets."""
+    (mod pi), first match wins; keep points seen in >= thr sets. The
+    points grow in place in one array (the JAX package rebuilds an array
+    from a list for every candidate; the arithmetic is the same)."""
     if len(minutiae_sets[init_ind]) == 0:
         return np.zeros((0, 4))
-    mnt = [list(m[:4]) for m in np.asarray(minutiae_sets[init_ind],
-                                           np.float64)]
-    count = [1.0] * len(mnt)
+    seed = np.asarray(minutiae_sets[init_ind], np.float64)[:, :4]
+    cap = sum(len(m) for m in minutiae_sets)
+    a = np.zeros((cap, 4))
+    a[:len(seed)] = seed
+    count = np.zeros(cap)
+    count[:len(seed)] = 1.0
+    n = len(seed)
     for i, mset in enumerate(minutiae_sets):
         if i == init_ind:
             continue
         for m in np.asarray(mset):
             x2, y2, ori2 = m[0], m[1], m[2]
-            a = np.asarray(mnt)
-            dx = a[:, 0] - x2
-            dy = a[:, 1] - y2
-            od = np.abs(a[:, 2] - ori2)
+            dx = a[:n, 0] - x2
+            dy = a[:n, 1] - y2
+            od = np.abs(a[:n, 2] - ori2)
             od = np.where(od > math.pi / 2, math.pi - od, od)
             hit = (dx * dx + dy * dy <= 100.0) & (od < math.pi / 6)
             if hit.any():
                 count[int(np.argmax(hit))] += 1
             else:
-                mnt.append([x2, y2, ori2, 1])
-                count.append(1.0)
-    keep = np.asarray(mnt, np.float64)[np.asarray(count) >= thr]
+                a[n] = (x2, y2, ori2, 1)
+                count[n] = 1.0
+                n += 1
+    keep = a[:n][count[:n] >= thr]
     if len(keep):
         keep[:, 3] = 1
     return keep

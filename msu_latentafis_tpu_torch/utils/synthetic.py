@@ -406,3 +406,45 @@ def write_bundle_npz(directory: str, variables: dict) -> dict:
         paths[key] = os.path.join(directory, key + ".npz")
         save_npz(paths[key], tree)
     return paths
+
+
+class PassThroughEnhancement(torch.nn.Module):
+    """A stand-in for a trained enhancement net: tanh of a 1 x 1
+    convolution of weight ``gain``, so ``ModelBundle.enhance`` returns its
+    input's ridges saturated toward black and white, as a trained net's
+    output is. Seeded weights make the autoencoder's output noise, whose
+    dictionary quality (~0.03) never reaches the latent mask's 0.45; with
+    this in its place the mask, the Gabor stage and the texture template
+    see ridges."""
+
+    def __init__(self, gain: float = 8.0):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(1, 1, 1, bias=False)
+        with torch.no_grad():
+            self.conv.weight.fill_(gain)
+
+    def forward(self, x):
+        return torch.tanh(self.conv(x))
+
+
+def latent_image(rng: np.random.Generator, rolled: np.ndarray, h: int,
+                 w: int, contrast: float = 0.35,
+                 noise_sigma: float = 20.0) -> np.ndarray:
+    """A partial, low-contrast crop of a rolled print [h, w] (uint8), as a
+    latent: the crop at a random offset (zero-padded where the print is
+    smaller), its ridges scaled by ``contrast`` about mid-grey inside a
+    random ellipse covering about half of it, flat grey outside, plus
+    Gaussian noise."""
+    rh, rw = rolled.shape
+    canvas = np.full((max(h, rh), max(w, rw)), 128.0)
+    canvas[:rh, :rw] = rolled
+    y0 = int(rng.integers(0, canvas.shape[0] - h + 1))
+    x0 = int(rng.integers(0, canvas.shape[1] - w + 1))
+    crop = canvas[y0:y0 + h, x0:x0 + w]
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = rng.uniform(0.35, 0.65) * h, rng.uniform(0.35, 0.65) * w
+    ry, rx = rng.uniform(0.3, 0.4) * h, rng.uniform(0.3, 0.4) * w
+    inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+    img = np.where(inside, 128.0 + (crop - 128.0) * contrast, 128.0)
+    img = img + rng.standard_normal((h, w)) * noise_sigma
+    return np.round(np.clip(img, 0, 255)).astype(np.uint8)

@@ -40,7 +40,8 @@ for name in ("config", "scripts.exp_screen_mfu",
              "models.minutiae_net", "models.descriptor_net", "ops.gaussian",
              "ops.contrast", "ops.fft", "ops.morphology", "ops.maps",
              "ops.minutiae", "ops.patches", "pipeline.latent",
-             "pipeline.rolled", "utils.image_io", "utils.precision"):
+             "pipeline.rolled", "utils.image_io", "utils.precision",
+             "ops.gabor", "scripts.bench_extraction"):
     assert "msu_latentafis_tpu_torch." + name in sys.modules, name
 from msu_latentafis_tpu_torch.config import AfisConfig
 from msu_latentafis_tpu_torch.pipeline import RolledFeatureExtractor
@@ -54,6 +55,15 @@ with tempfile.TemporaryDirectory() as d:
 t = ext.extract(render_ridge_image(rng, 160, 176)[0])
 assert len(t.minu_template[0].minutiae) > 0 and len(t.texture_template) == 1
 assert set(ext.timings) == {"cropping", "minutiae", "descriptors", "texture"}
+from msu_latentafis_tpu_torch.pipeline import LatentFeatureExtractor
+from msu_latentafis_tpu_torch.utils.synthetic import (PassThroughEnhancement,
+                                                      latent_image)
+lat = LatentFeatureExtractor(models=ext.models)
+lat.models.enhancement = PassThroughEnhancement()
+t = lat.extract(latent_image(rng, np.round(render_ridge_image(
+    rng, 256, 288)[0]).astype(np.uint8), 224, 256))
+assert len(t.minu_template) == 28 and lat.diag["mask_frac"] > 0
+assert "cartoon" in lat.timings and "gabor_x2" in lat.timings
 from msu_latentafis_tpu_torch.models.compnet import CompNet
 from msu_latentafis_tpu_torch.ops.pq import pq_encode
 from msu_latentafis_tpu_torch.pipeline import ModelBundle
