@@ -163,7 +163,29 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      for near ties of the vote); then ``match
      -ldir`` of the 4 latents against phase 12's enrolled prints, every
      score finite, each mate's rank and score printed (seeded nets: not
-     asserted).
+     asserted);
+  14. training on the card: one step of each pipeline net at full width
+     (MinutiaeAEC nf 64 on 16 x 128^2, MinutiaeAEC64 nf 64 on 16 x 64^2,
+     EnhancementAEC nf 16 on 16 x 128^2, DescriptorNet 32-256 / 64 on 64
+     patches of 96^2 in 16 ids x 4, CompNet 192 -> 96 on 256 rows) on the
+     card and on the CPU from the same seeded variables and batch: the
+     losses, the gradients as |card - CPU| over 2 K u min(c max|their
+     leaf|, max|any gradient|) (K the step's sums' length, c the
+     BatchNorms' largest E[x^2] / var; a bias whose f64 gradient on the
+     card is nought against 2 K u max|any gradient|) and the new batch
+     statistics over 2 K u max|value|, the
+     elements beyond counted (any fails the phase); each net's steady ms per
+     step, samples / s and peak memory on the card; ``pretrain.main`` for
+     every net with its cuts listed (TRAIN_CUTS), the descriptor streamed
+     from two shards of ``scripts.gen_descriptor_pool``, each net's first
+     and last loss and pool-build seconds; ``ModelBundle.initialize`` on
+     the eight written .npz files and ``extract-rolled`` of phase 12's
+     p0.png through them (its final .dat read back); the sharded step over
+     a (1, 1) mesh on NCCL against the unsharded step, for ``l2`` and
+     ``triplet``: the first step's gradients leaf by leaf and the batch
+     statistics by the rules above, each step's parameters against Adam
+     replayed in f64 on the sharded run's own gradients (4 u |p| + 32 u
+     lr), the losses.
 The kernels' JSON record takes each kernel's launches from the path that
 runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 6) and its numbers from the same path's shapes and data: means per launch
@@ -243,6 +265,7 @@ EXTRACT_CPU = (0, 1)         # prints extracted on the CPU too (a PNG, a BMP)
 N2N_SIZE = (1229, 1229)      # SD4's print at 1,200 ppi
 LATENT_SIZE = (800, 768)
 U32 = 2.0 ** -24             # f32 unit roundoff
+U64 = 2.0 ** -53             # f64 unit roundoff
 # a net's outputs, card against CPU on the same input: within K u max|out|
 # with K its longest dot product (kh kw c_in): one reordered f32 sum's bound
 NET_K = {"enhancement": 16 * 128, "minutiae": 16 * 512,
@@ -3182,6 +3205,426 @@ def phase_latent(cb, card, workdir, device="cuda"):
         f"best score) {ranks} (seeded nets: not asserted), on {card}")
 
 
+# phase 14: training on the card. The nets at the widths the pipeline loads,
+# on pretrain.py's batch shapes: (net, batch NCHW or rows, step kind)
+TRAIN_NETS = (("minutiae", (16, 1, 128, 128), "l2"),
+              ("minutiae64", (16, 1, 64, 64), "l2"),
+              ("enhancement", (16, 1, 128, 128), "l2"),
+              ("descriptor", (64, 1, 96, 96), "triplet"),
+              ("compnet", (256, 192), "compnet"))
+TRAIN_TIMED = 5              # steady steps timed per net, after a warm-up
+TRAIN_STEPS = 4              # pretrain's --steps in phase 14
+# pretrain's cuts in phase 14, against its defaults: pools of 64 samples
+# (256, 256 and 384), the descriptor's 4 steps (max(100, steps / 2)) from
+# two one-batch shards of the ported gen_descriptor_pool (a pool of 128)
+TRAIN_CUTS = dict(minutiae=dict(pool=64), minutiae64=dict(pool=64),
+                  enhancement=dict(pool=64), descriptor=dict(steps=4))
+
+
+def train_net(name):
+    """A pipeline net at full width, seeded."""
+    from msu_latentafis_tpu_torch.models.compnet import CompNet
+    from msu_latentafis_tpu_torch.models.descriptor_net import DescriptorNet
+    from msu_latentafis_tpu_torch.models.enhancement import EnhancementAEC
+    from msu_latentafis_tpu_torch.models.minutiae_net import (MinutiaeAEC,
+                                                              MinutiaeAEC64)
+    from msu_latentafis_tpu_torch.models.weights import seeded
+    make = {"minutiae": lambda: MinutiaeAEC(64),
+            "minutiae64": lambda: MinutiaeAEC64(64),
+            "enhancement": lambda: EnhancementAEC(16),
+            "descriptor": lambda: DescriptorNet(64, (32, 64, 128, 256)),
+            "compnet": lambda: CompNet()}[name]
+    with seeded(14):
+        return make()
+
+
+def train_batch(name, shape, kind):
+    """(x, y) of one step, seeded: targets |N(0, 1)| of the output's shape
+    for the L2 nets, 16 ids x 4 for the descriptor, unit rows for
+    CompNet."""
+    import numpy as np
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if kind == "l2":
+        ch = 1 if name == "enhancement" else 12
+        return x, np.abs(rng.standard_normal((shape[0], ch) + shape[2:])
+                         ).astype(np.float32)
+    if kind == "triplet":
+        return x, np.repeat(np.arange(shape[0] // 4), 4)
+    return x / np.linalg.norm(x, axis=1, keepdims=True), None
+
+
+def train_step_fn(kind):
+    from msu_latentafis_tpu_torch.training.pretrain import compnet_train_step
+    from msu_latentafis_tpu_torch.training.trainer import (
+        l2_train_step, triplet_train_step)
+    if kind == "compnet":
+        return lambda st, x, y: compnet_train_step(st, x)
+    return l2_train_step if kind == "l2" else triplet_train_step
+
+
+def train_sums_k(net, x_shape, out_rows) -> int:
+    """The step's sums' length: the forward's dot lengths added up, plus
+    the longest weight-gradient sum (batch x pixels at the larger of the
+    input's and the output's resolution, or the rows)."""
+    import numpy as np
+    import torch
+    k = 0
+    for m in net.modules():
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            k += m.weight[:, 0].numel()
+        elif isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            k += m.weight[0].numel()
+    return k + max(x_shape[0] * int(np.prod(x_shape[2:])), out_rows)
+
+
+def step_parts(net):
+    """(the parameters' gradients by name, the running statistics flat in
+    the Flax layout) after a step, on the host."""
+    from msu_latentafis_tpu_torch.models.weights import flatten, to_flax
+    grads = {n: p.grad.detach().cpu().double().numpy()
+             for n, p in net.named_parameters()}
+    return grads, flatten(to_flax(net)["batch_stats"] or {})
+
+
+def bn_condition_hooks(net) -> list:
+    """Hooks on the net's BatchNorms that add each train-mode forward's
+    largest E[x^2] / var over the channels to the returned list: the
+    factor by which the E[x^2] - E[x]^2 variance magnifies the rounding
+    of its sums."""
+    from msu_latentafis_tpu_torch.models.batchnorm import _FlaxBatchNorm
+    conds = [1.0]
+
+    def hook(mod, args, out):
+        a = args[0].detach().double()
+        axes = [0] + list(range(2, a.dim()))
+        mean2 = (a * a).mean(axes)
+        conds.append(float((mean2 / (mean2 - a.mean(axes) ** 2)).max()))
+    for m in net.modules():
+        if isinstance(m, _FlaxBatchNorm):
+            m.register_forward_hook(hook)
+    return conds
+
+
+def nought_biases(grads64: dict, net, K) -> set:
+    """The conv and dense biases whose f64 gradient is within 2 K u64
+    max|any gradient| of 0: their exact gradient is 0 (their layer reaches
+    the loss only through BatchNorms, which subtract each channel's batch
+    mean), the computed one rounding alone."""
+    import numpy as np
+    import torch
+    gmax = max(float(np.abs(v).max()) for v in grads64.values())
+    return {f"{n}.bias" for n, m in net.named_modules()
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                              torch.nn.Linear)) and m.bias is not None
+            and float(np.abs(grads64[f"{n}.bias"]).max())
+            <= 2 * K * U64 * gmax}
+
+
+def grads_beyond(got: dict, want: dict, tol: float, c: float,
+                 zero: set) -> tuple:
+    """(elements of ``got`` beyond ``tol`` min(c max|their leaf of
+    ``want``|, max|any gradient of want|), the largest |got - want| over
+    its bound); a leaf of ``zero`` against ``tol`` max|any gradient of
+    want|, its values and want's each taken as their distance from 0."""
+    import numpy as np
+    gmax = max(float(np.abs(v).max()) for v in want.values())
+    n, worst = 0, 0.0
+    for k in want:
+        if k in zero:
+            b = tol * gmax
+            d = np.maximum(np.abs(got[k]), np.abs(want[k]).max())
+        else:
+            b = tol * min(c * float(np.abs(want[k]).max()), gmax)
+            d = np.abs(got[k].astype(np.float64) - want[k])
+        n += int((d > b).sum())
+        worst = max(worst, float(d.max()) / b)
+    return n, worst
+
+
+def beyond(a: dict, b: dict, bound) -> tuple:
+    """(elements of a beyond bound(key) of b, the largest |a - b| over its
+    bound)."""
+    import numpy as np
+    n, worst = 0, 0.0
+    for k in b:
+        d = np.abs(a[k].astype(np.float64) - b[k])
+        n += int((d > bound(k)).sum())
+        worst = max(worst, float(d.max()) / bound(k))
+    return n, worst
+
+
+def adam_beyond(before: dict, steps: list, lr: float = 1e-4,
+                b1: float = 0.5, b2: float = 0.9, eps: float = 1e-8):
+    """Adam replayed in f64 on a run's own gradients: ``steps`` holds each
+    step's (gradients, parameters after) by name, from the parameters
+    ``before``. -> (elements beyond 4 u |p| + 32 u lr of the replay from
+    the last step's parameters, the largest |d| over its bound)."""
+    import numpy as np
+    mom, n, worst = {}, 0, 0.0
+    for t, (grads, after) in enumerate(steps, 1):
+        for k, g in grads.items():
+            m, v = mom.get(k, (0.0, 0.0))
+            m, v = b1 * m + (1 - b1) * g, b2 * v + (1 - b2) * g * g
+            mom[k] = (m, v)
+            want = before[k] - lr * (m / (1 - b1 ** t)) / (
+                np.sqrt(v / (1 - b2 ** t)) + eps)
+            bound = 4 * U32 * np.abs(want) + 32 * U32 * lr
+            d = np.abs(after[k] - want)
+            n += int((d > bound).sum())
+            worst = max(worst, float((d / bound).max()))
+        before = after
+    return n, worst
+
+
+def phase_train(card, workdir, device="cuda"):
+    """Phase 14: one training step of each pipeline net at full width on
+    the card against the CPU, the steps timed, ``pretrain`` end to end,
+    its weights through ``ModelBundle.initialize`` and ``extract-rolled``,
+    and the sharded step at world size 1 against the unsharded step."""
+    import contextlib
+    import copy
+    import io
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from msu_latentafis_tpu_torch import cli
+    from msu_latentafis_tpu_torch.config import AfisConfig
+    from msu_latentafis_tpu_torch.parallel.distributed import backend_for
+    from msu_latentafis_tpu_torch.pipeline import ModelBundle
+    from msu_latentafis_tpu_torch.scripts import gen_descriptor_pool
+    from msu_latentafis_tpu_torch.templates import read_final_template
+    from msu_latentafis_tpu_torch.training import pretrain
+    from msu_latentafis_tpu_torch.training.trainer import (
+        create_train_state, make_sharded_train_step, make_train_mesh)
+    from msu_latentafis_tpu_torch.models.weights import (flatten, load_npz,
+                                                          to_flax)
+    dev = torch.device(device)
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
+
+    # (a) one step of each net, card against CPU, from the same variables
+    # and batch; (b) the card's steps timed
+    rows, bad, meta = [], 0, {}
+    for name, shape, kind in TRAIN_NETS:
+        x, y = train_batch(name, shape, kind)
+        fn = train_step_fn(kind)
+        nets, parts, loss = {}, {}, {}
+        for who, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            net = train_net(name).to(d)
+            if who == "cpu":
+                conds = bn_condition_hooks(net)
+            st = create_train_state(net)
+            _, l = fn(st, torch.as_tensor(x, device=d),
+                      None if y is None else torch.as_tensor(y, device=d))
+            loss[who] = float(l)
+            parts[who] = step_parts(net)
+            nets[who] = (net, st)
+        # the exact gradients' nought biases, from an f64 step on the card
+        net64 = train_net(name).to(dev).double()
+        fn(create_train_state(net64),
+           torch.as_tensor(x, dtype=torch.float64, device=dev),
+           None if y is None else torch.as_tensor(
+               y, dtype=torch.float64 if kind == "l2" else None,
+               device=dev))
+        g64 = step_parts(net64)[0]
+        del net64
+        g_c, bs_c = parts["cpu"]
+        out_rows = shape[0] * int(np.prod(np.shape(y)[2:])) \
+            if kind == "l2" else 0
+        K = train_sums_k(nets["cpu"][0], shape, out_rows)
+        zero = nought_biases(g64, nets["cpu"][0], K)
+        meta[name] = (K, max(conds), zero)
+        n_g, w_g = grads_beyond(parts["card"][0], g_c, 2 * K * U32,
+                                max(conds), zero)
+        n_b, w_b = beyond(parts["card"][1], bs_c, lambda k: 2 * K * U32 * max(
+            float(np.abs(bs_c[k]).max()), 1e-30))
+        bad += n_g + n_b
+        if abs(loss["card"] - loss["cpu"]) > 2 * K * U32 * abs(loss["cpu"]):
+            raise AssertionError(f"{name}: loss card {loss['card']} CPU "
+                                 f"{loss['cpu']}")
+        net, st = nets["card"]
+        xd = torch.as_tensor(x, device=dev)
+        yd = None if y is None else torch.as_tensor(y, device=dev)
+        fn(st, xd, yd)                                   # warm
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED):
+            fn(st, xd, yd)
+        sync()
+        s = (time.perf_counter() - t0) / TRAIN_TIMED
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20 \
+            if dev.type == "cuda" else float("nan")
+        if dev.type == "cuda":             # where one steady step's time goes
+            profile_call(f"train {name}", lambda: fn(st, xd, yd))
+        rows.append((name, "x".join(map(str, shape)), round(loss["card"], 4),
+                     round(loss["cpu"], 4), K, round(max(conds), 2),
+                     len(zero), n_g, round(w_g, 4), n_b, round(w_b, 4),
+                     round(s * 1e3, 3), round(shape[0] / s, 1),
+                     round(peak, 1)))
+        del nets, st, net
+    log(f"[train] one step per net at full width, card against CPU from the "
+        f"same seeded variables and batch, f32 with TF32 off; (net, batch, "
+        f"loss card, loss CPU, K, c the BatchNorms' largest E[x^2] / var, "
+        f"the biases of exact gradient 0 (nought in an f64 step on the "
+        f"card), gradient elements beyond 2 K u min(c max|their leaf|, "
+        f"max|any gradient|) (those biases: max|any gradient|), the "
+        f"largest |d| / bound, batch "
+        f"statistics beyond 2 K u max|stat|, the largest |d| / bound, ms "
+        f"per steady step on the card, samples / s, peak MiB): {rows} on "
+        f"{card}")
+    if bad:
+        raise AssertionError(f"{bad} gradient / batch-statistic elements "
+                             f"beyond their bounds")
+
+    # (c) the entry point: pretrain for every net, the descriptor streamed
+    # from two shards of gen_descriptor_pool
+    stream = os.path.join(workdir, "train_stream")
+    wdir = os.path.join(workdir, "trained")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen_descriptor_pool.main(["--out", stream, "--max-shards", "2",
+                                  "--batches-per-shard", "1", "--seed", "14",
+                                  "--device", device])
+    gen_s = time.perf_counter() - t0
+    old = {k: os.environ.pop(k, None) for k in ("PRETRAIN_STREAM_DIR",
+                                                 "PRETRAIN_POOL_DIR",
+                                                 "PRETRAIN_CPU")}
+    os.environ["PRETRAIN_STREAM_DIR"] = stream
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            infos = pretrain.main(["--out", wdir, "--steps",
+                                   str(TRAIN_STEPS), "--device", device],
+                                  **TRAIN_CUTS)
+    finally:
+        os.environ.pop("PRETRAIN_STREAM_DIR")
+        os.environ.update({k: v for k, v in old.items() if v is not None})
+    total_s = time.perf_counter() - t0
+    want = sorted(f"{n}.npz" for n in pretrain.FILES)
+    if sorted(os.listdir(wdir)) != want:
+        raise AssertionError(f"pretrain wrote {sorted(os.listdir(wdir))}")
+    summary = {n: (round(i["losses"][0], 4), round(i["losses"][-1], 4),
+                   round(i["pool_s"], 2), round(i["step_s"], 2))
+               for n, i in infos.items()}
+    if not all(np.isfinite(i["losses"]).all() for i in infos.values()):
+        raise AssertionError(f"pretrain losses {summary}")
+    log(f"[train] pretrain --steps {TRAIN_STEPS} on the card in "
+        f"{total_s:.2f} s (gen_descriptor_pool's two shards {gen_s:.2f} s "
+        f"before it), cuts {TRAIN_CUTS}; (first loss, last loss, pool-build "
+        f"s, step-loop s) per net {summary}; files {want}, on {card}")
+
+    # (d) the written weights on the extraction path
+    cfg = AfisConfig(**pretrain.config_paths(wdir),
+                     CodebookPath=os.path.join(workdir, "codebook.dat"))
+    cfg_path = os.path.join(workdir, "trained.config")
+    cfg.save(cfg_path)
+    bundle = ModelBundle.initialize(cfg, device=device)
+    loaded = {"EnhancementModel": bundle.enhancement,
+              "MinutiaeExtractionModelLatentSTFT": bundle.minutiae[0],
+              "MinutiaeExtractionModel": bundle.minutiae[1],
+              "MinutiaeExtractionModelRolled": bundle.minutiae[2],
+              "DimensionalityReductionModel": bundle.compnet,
+              **{f"DescriptorModelPatch{pt}": net for pt, net in
+                 zip(bundle.patch_types, bundle.descriptors)}}
+    for field, path in pretrain.config_paths(wdir).items():
+        a, b = flatten(to_flax(loaded[field])), flatten(load_npz(path))
+        if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                           for k in b):
+            raise AssertionError(f"{field}: the bundle's net is not {path}")
+    widths = {f: sum(v.size for v in flatten(to_flax(n)).values())
+              for f, n in loaded.items()}
+    idir, tdir = (os.path.join(workdir, k) for k in ("train_img",
+                                                      "train_dat"))
+    os.makedirs(idir)
+    shutil.copy(os.path.join(workdir, "img", "p0.png"), idir)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["extract-rolled", "--idir", idir, "--tdir", tdir,
+                       "--config", cfg_path, "--device", device])
+    if rc != 0 or "extraction FAILED" in out.getvalue():
+        raise AssertionError(f"extract-rolled on the trained weights: rc "
+                             f"{rc}\n{out.getvalue()[-2000:]}")
+    t = read_final_template(os.path.join(tdir, "p0.dat"), "rolled")
+    n_minu = len(t.minu_template[0].minutiae) if t.minu_template else 0
+    n_tex = len(t.texture_template[0].minutiae) if t.texture_template else 0
+    log(f"[train] ModelBundle.initialize on the 8 written .npz (each net "
+        f"equal to its file; parameters and statistics per net {widths}), "
+        f"then extract-rolled of phase 12's p0.png in "
+        f"{time.perf_counter() - t0:.2f} s: its final .dat reads back with "
+        f"{n_minu} minutiae and {n_tex} texture rows ({TRAIN_STEPS}-step "
+        f"nets: counts not asserted), on {card}")
+
+    # (e) the sharded step at world size 1 against the unsharded step: the
+    # first step's gradients leaf by leaf, Adam replayed on the sharded
+    # run's own gradients, the batch statistics, the losses
+    dist.init_process_group(backend_for(dev), store=dist.HashStore(), rank=0,
+                            world_size=1)
+    res = []
+
+    def host(tensors):
+        return {n: t.detach().cpu().double().numpy()
+                for n, t in tensors.items()}
+    try:
+        mesh = make_train_mesh(1, 1, device_type=dev.type)
+        for name, shape, kind in (TRAIN_NETS[1], TRAIN_NETS[3]):
+            x, y = train_batch(name, shape, kind)
+            xd = torch.as_tensor(x, device=dev)
+            yd = torch.as_tensor(y, device=dev)
+            net = train_net(name).to(dev)
+            ref, again = copy.deepcopy(net), copy.deepcopy(net)
+            before = host(dict(net.named_parameters()))
+            sst, sstep = make_sharded_train_step(net, mesh, kind)
+            ust, ust2 = create_train_state(ref), create_train_state(again)
+            ustep = train_step_fn(kind)
+            losses, steps = [], []
+            for i in range(2):
+                sst, ls = sstep(sst, xd, yd)
+                steps.append((host(sst.full_parameters(grads=True)),
+                              host(sst.full_parameters())))
+                ust, lu = ustep(ust, xd, yd)
+                ust2, _ = ustep(ust2, xd, yd)
+                if i == 0:
+                    g_u, g_u2 = step_parts(ref)[0], step_parts(again)[0]
+                losses.append((float(ls), float(lu)))
+            K, c, zero = meta[name]
+            n_g, w_g = grads_beyond(steps[0][0], g_u, 2 * K * U32, c, zero)
+            equal = all(np.array_equal(steps[0][0][k], g_u[k]) for k in g_u)
+            # the unsharded step run twice: cuDNN's backward algorithms may
+            # sum in another order from call to call
+            _, w_g2 = grads_beyond(g_u2, g_u, 2 * K * U32, c, zero)
+            n_a, w_a = adam_beyond(before, steps)
+            a = flatten({"b": sst.variables()["batch_stats"]})
+            b = flatten({"b": ust.variables()["batch_stats"]})
+            n_b, w_b = beyond(a, b, lambda k: 2 * K * U32 * max(
+                float(np.abs(b[k]).max()), 1e-30))
+            # how far one step moves the loss, over the loss's bound
+            moved = abs(losses[1][1] - losses[0][1]) / (
+                2 * K * U32 * abs(losses[1][1]))
+            res.append((name, kind, losses, n_g, round(w_g, 6), equal,
+                        round(w_g2, 6), n_a, round(w_a, 4), n_b,
+                        round(w_b, 6), round(moved, 3)))
+            if n_g or n_a or n_b or any(abs(p - q) > 2 * K * U32 * abs(q)
+                                        for p, q in losses):
+                raise AssertionError(f"sharded step {name}: {res[-1]}")
+    finally:
+        dist.destroy_process_group()
+    log(f"[train] the sharded step over a (data, model) = (1, 1) mesh on "
+        f"{backend_for(dev)} against the unsharded step, 2 steps; (net, "
+        f"kind, (sharded loss, unsharded loss) per step, first-step "
+        f"gradient elements beyond the rule above, the largest "
+        f"|d| / bound, bit-equal, a second unsharded run against the "
+        f"first: the largest |d| / bound; parameters beyond 4 u |p| + 32 u "
+        f"lr of Adam replayed in f64 on the sharded run's gradients, the "
+        f"largest |d| / bound; batch statistics beyond 2 K u max|stat|, the "
+        f"largest |d| / bound; one step's move of the unsharded loss over "
+        f"the loss bound 2 K u |loss|): {res}, on {card}")
+
+
 def launch_split(label, fn, sym=None, reps: int = 20) -> list:
     """Host time per call (the enqueue of ``reps`` back-to-back calls, no
     synchronize) and device time per launch (torch.profiler over another
@@ -3256,7 +3699,8 @@ def profile_call(label, fn):
             f"traced)")
         return
     log(f"[profile {label}] wall {wall_ms:.2f} ms, device busy {busy:.2f} "
-        f"ms, idle share {max(0.0, 1.0 - busy / wall_ms):.3f}")
+        f"ms, idle share {max(0.0, 1.0 - busy / wall_ms):.3f}, "
+        f"{sum(n for _, n in dev.values())} kernel launches")
     for name, (ms, n) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"[profile {label}] {ms:9.3f} ms {100 * ms / busy:5.1f}% "
             f"x{n:<5d} {name[:90]}")
@@ -3371,7 +3815,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         phase_latent(cb, card, work)
-    log(f"[phase 13] {time.perf_counter() - t0:.1f} s")
+        log(f"[phase 13] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_train(card, work)
+    log(f"[phase 14] {time.perf_counter() - t0:.1f} s")
     # each kernel's launches and numbers on the main path that runs it: the
     # dense match (phase 3), 100,000-entry serving in its layout or with
     # normalize=True (phase 5), the standalone filter path (phase 6), the

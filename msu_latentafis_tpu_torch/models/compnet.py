@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pq import f32_matmul
-from .weights import BN_EPS, load_flax
+from .batchnorm import FlaxBatchNorm1d
+from .weights import load_flax
 
 DES_NORM = 1.73
 COMPRESS_ROWS = 1 << 20  # rows per forward pass of compress_rows
@@ -32,9 +33,9 @@ class BasicBlock(nn.Module):
     def __init__(self, dims: int):
         super().__init__()
         self.fc1 = nn.Linear(dims, dims)
-        self.bn1 = nn.BatchNorm1d(dims, eps=BN_EPS)
+        self.bn1 = FlaxBatchNorm1d(dims)
         self.fc2 = nn.Linear(dims, dims)
-        self.bn2 = nn.BatchNorm1d(dims, eps=BN_EPS)
+        self.bn2 = FlaxBatchNorm1d(dims)
 
     def forward(self, x):
         y = F.leaky_relu(self.bn1(self.fc1(x)), 0.2)
@@ -50,10 +51,10 @@ class CompNet(nn.Module):
     def __init__(self, in_dims: int = 192, out_dims: int = 96):
         super().__init__()
         self.fc_in = nn.Linear(in_dims, out_dims)
-        self.bn_in = nn.BatchNorm1d(out_dims, eps=BN_EPS)
+        self.bn_in = FlaxBatchNorm1d(out_dims)
         self.block = BasicBlock(out_dims)
         self.fc_out = nn.Linear(out_dims, out_dims)
-        self.bn_out = nn.BatchNorm1d(out_dims, eps=BN_EPS)
+        self.bn_out = FlaxBatchNorm1d(out_dims)
 
     def forward(self, x):
         x = F.leaky_relu(self.bn_in(self.fc_in(x)), 0.2)

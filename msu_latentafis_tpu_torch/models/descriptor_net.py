@@ -19,17 +19,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from .enhancement import SameConv2d
-from .weights import BN_EPS, load_flax
+from .batchnorm import FlaxBatchNorm2d
+from .weights import load_flax
 
 
 class ResBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1):
         super().__init__()
-        self.bn0 = nn.BatchNorm2d(cin, eps=BN_EPS)
+        self.bn0 = FlaxBatchNorm2d(cin)
         self.shortcut = SameConv2d(cin, features, 1, stride) \
             if cin != features or stride != 1 else None
         self.conv1 = SameConv2d(cin, features, 3, stride)
-        self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn1 = FlaxBatchNorm2d(features)
         self.conv2 = SameConv2d(features, features, 3)
 
     def forward(self, x):
@@ -61,7 +62,7 @@ class DescriptorNet(nn.Module):
             self.blocks.append(ResBlock(c, w, stride=2))
             self.blocks.append(ResBlock(w, w))
             c = w
-        self.bn = nn.BatchNorm2d(c, eps=BN_EPS)
+        self.bn = FlaxBatchNorm2d(c)
         self.fc = nn.Linear(c, embedding_size)
 
     def forward(self, x):

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.precision import f32_compute
-from .weights import BN_EPS, load_flax
+from .batchnorm import FlaxBatchNorm2d
+from .weights import load_flax
 
 
 def same_pads(size, kernel, stride) -> list:
@@ -41,8 +42,9 @@ def same_pads(size, kernel, stride) -> list:
 class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` with Flax's "SAME" padding, padded explicitly."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
-        super().__init__(cin, cout, kernel, stride=stride)
+    def __init__(self, cin: int, cout: int, kernel, stride: int = 1,
+                 bias: bool = True):
+        super().__init__(cin, cout, kernel, stride=stride, bias=bias)
 
     def forward(self, x):
         pads = same_pads(x.shape[-2:], self.kernel_size, self.stride)
@@ -59,7 +61,7 @@ class ConvBNRelu(nn.Module):
                  stride: int = 2):
         super().__init__()
         self.conv = SameConv2d(cin, features, kernel, stride)
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn = FlaxBatchNorm2d(features)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -73,7 +75,7 @@ class DeconvBNRelu(nn.Module):
     def __init__(self, cin: int, features: int):
         super().__init__()
         self.deconv = deconv(cin, features)
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn = FlaxBatchNorm2d(features)
 
     def forward(self, x):
         return F.relu(self.bn(self.deconv(x)))

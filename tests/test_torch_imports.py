@@ -1,5 +1,6 @@
 """The port stands alone: no JAX (nor Flax or Orbax), nothing of the JAX
-package, no Triton and no kernel build at import time."""
+package, no Triton and no kernel build at import time; no matplotlib
+either (``show`` imports it when it draws)."""
 import os
 import re
 import subprocess
@@ -15,6 +16,7 @@ sys.modules["jax"] = None          # any "import jax" now raises ImportError
 sys.modules["flax"] = None
 sys.modules["orbax"] = None
 sys.modules["msu_latentafis_tpu"] = None
+sys.modules["matplotlib"] = None   # the card's machine has none
 import importlib, pkgutil
 import numpy as np
 import msu_latentafis_tpu_torch as port
@@ -41,7 +43,13 @@ for name in ("config", "scripts.exp_screen_mfu",
              "ops.contrast", "ops.fft", "ops.morphology", "ops.maps",
              "ops.minutiae", "ops.patches", "pipeline.latent",
              "pipeline.rolled", "utils.image_io", "utils.precision",
-             "ops.gabor", "scripts.bench_extraction"):
+             "ops.gabor", "scripts.bench_extraction", "ops.cylinder",
+             "models.batchnorm", "models.zoo", "training", "training.trainer",
+             "training.losses", "training.augment", "training.synthetic_data",
+             "training.markup", "training.datasets", "training.checkpoints",
+             "training.pretrain", "evaluate", "evaluate.verification",
+             "evaluate.search", "evaluate.pairs", "evaluate.classification",
+             "show", "scripts.gen_descriptor_pool"):
     assert "msu_latentafis_tpu_torch." + name in sys.modules, name
 from msu_latentafis_tpu_torch.config import AfisConfig
 from msu_latentafis_tpu_torch.pipeline import RolledFeatureExtractor
@@ -84,8 +92,17 @@ bf = MatchEngine(cb, block_size=1, compute_dtype=torch.bfloat16,
                  tex_int8=True, minu_int8=True, device="cpu")
 q = float(bf.match_scores(packed[0], bf.load_gallery(mates))[0])
 assert abs(q - score) < 0.05 * score, (q, score)
+from msu_latentafis_tpu_torch.training import (create_train_state,
+                                               l2_train_step)
+from msu_latentafis_tpu_torch.training.pretrain import config_paths
+comp = CompNet()
+st = create_train_state(comp)
+x = torch.as_tensor(rng.standard_normal((8, 192)), dtype=torch.float32)
+_, loss = l2_train_step(st, x, torch.zeros(8, 96))
+assert st.step == 1 and float(loss) > 0 and not comp.training
+assert set(config_paths("w")) >= {"EnhancementModel", "DescriptorModelPatch2"}
 assert "triton" not in sys.modules
-assert not any(k.startswith(("jax", "flax", "orbax"))
+assert not any(k.startswith(("jax", "flax", "orbax", "matplotlib"))
                for k, v in sys.modules.items() if v)
 print("OK", score)
 '''
