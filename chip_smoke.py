@@ -185,7 +185,19 @@ Phases (any failure exits nonzero; there is no CPU fallback):
      ``triplet``: the first step's gradients leaf by leaf and the batch
      statistics by the rules above, each step's parameters against Adam
      replayed in f64 on the sharded run's own gradients (4 u |p| + 32 u
-     lr), the losses.
+     lr), the losses;
+  15. the ported measuring scripts, called as functions at full widths
+     with galleries cut to 16,384 entries (MEASURE_G; their defaults are
+     100,000 and 400,000) and the launch counts read after them:
+     ``rank_parity_100k`` at the 448 and cap shapes (every mate at rank 1
+     dense and serving; serving's exact scores the dense scores at the
+     kept indices, bit for bit), ``rank_parity_structured`` at both shapes
+     (MEASURE_NM near-mates a latent: every top-24 set equal, orders
+     printed), ``profile_match``'s five variants (ops' kernels restored
+     after), ``profile_rerank`` (breakdown and TFLOP/s printed), and the
+     ladder's spec100k, spec500k (the memory record printed), serve400k
+     (planted mates at rank 1), rolled1k (self-matches at rank 1) and
+     mated1k (rank-1 1.0).
 The kernels' JSON record takes each kernel's launches from the path that
 runs it (phase 3, phase 5 in its layout or with normalize=True, or phase
 6) and its numbers from the same path's shapes and data: means per launch
@@ -218,7 +230,6 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -342,14 +353,6 @@ DENSE_KERNELS = ("adc_rowmax", "texture_match", "minutiae_match")
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
 
 
 def reset_counts():
@@ -3625,6 +3628,112 @@ def phase_train(card, workdir, device="cuda"):
         f"the loss bound 2 K u |loss|): {res}, on {card}")
 
 
+# phase 15: the measuring scripts at full widths, galleries cut to
+# MEASURE_G entries (the scripts' defaults: 100,000; spec500k and
+# serve400k 400,000); the structured protocol at its own 50 near-mates a
+# latent: with 8 the dense top-24 holds 15 iid impostors, which no
+# sub-exact screen reproduces (rank_parity_100k's tail), so set equality
+# would test noise, not the serving path
+MEASURE_G = 16384
+MEASURE_NM = 50
+# the kernels the scripts' paths launch
+MEASURE_KERNELS = ("minutiae_match", "texture_match", "adc_rowmax",
+                   "adc_rowmax_codes", "minu_screen", "adc_screen",
+                   "adc_screen_codes")
+
+
+def phase_measure(card, device="cuda", G=MEASURE_G, NM=MEASURE_NM,
+                  shapes=None):
+    """The ported measuring scripts, called as functions on the card at
+    full widths (448 and cap shapes; ``shapes`` cuts them for a CPU
+    rehearsal): rank parity and structured rank parity at both shapes,
+    profile_match's five variants, profile_rerank, and the ladder's
+    spec100k, spec500k, serve400k, rolled1k and mated1k, with the launch
+    counts set to 0 before and read after."""
+    import numpy as np
+    import torch
+    from msu_latentafis_tpu_torch.matcher.kernels import ops
+    from msu_latentafis_tpu_torch.scripts import bench_ladder as bl
+    from msu_latentafis_tpu_torch.scripts import measure as M
+    from msu_latentafis_tpu_torch.scripts import profile_match as pm
+    from msu_latentafis_tpu_torch.scripts import profile_rerank as pr
+    from msu_latentafis_tpu_torch.scripts import rank_parity_100k as rp
+    from msu_latentafis_tpu_torch.scripts import rank_parity_structured as rs
+    cb = M.codebook()
+    real = {n: getattr(ops, n) for n in pm.STUBS}
+    reset_counts()
+    t0 = time.perf_counter()
+    for cap in (False, True):
+        label = "cap" if cap else "448"
+        sh = shapes and shapes[label]
+        res, out = rp.run(cap, G=G, device=device, shapes=sh)
+        for i, rec in enumerate(res["latents"]):
+            if (rec["mate_rank_dense"], rec["mate_rank_serving"]) != (1, 1):
+                raise AssertionError(f"[measure] parity {label}: latent {i} "
+                                     f"mate ranks {rec}")
+            idx, dense = out["idx"][i], out["dense"][i]
+            if idx.max() >= G or not np.array_equal(out["exact"][i],
+                                                    dense[idx]):
+                raise AssertionError(f"[measure] parity {label}: latent {i}'s"
+                                     f" serving exact scores are not the "
+                                     f"dense scores at the kept indices")
+        log(f"[measure] rank parity {label} over {G} entries: mates at rank "
+            f"1 in both, exact == dense at the kept indices bit for bit; "
+            f"dense {res['config']['dense_seconds']:.3f} s, serving "
+            f"{res['config']['serving_seconds']:.3f} s; {res['summary']}")
+        res, out = rs.run_shapes(cap, G=G, NM=NM, device=device, shapes=sh)
+        log(f"[measure] structured {label}, {NM} near-mates a latent: sets "
+            f"{[r['top24_set_overlap'] for r in res['latents']]}, orders "
+            f"{[r['top24_order_agreement'] for r in res['latents']]}, "
+            f"structured in the dense top 24 "
+            f"{[r['dense_top24_structured_entries'] for r in res['latents']]}"
+            f"; dense {res['config']['dense_seconds_steady']:.3f} s, serving "
+            f"{res['config']['serving_seconds_steady']:.3f} s")
+        if not res["summary"]["all_top24_sets_equal"]:
+            raise AssertionError(f"[measure] structured {label}: a top-24 "
+                                 f"set differs: {res['latents']}")
+        del out
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    sh = shapes and shapes["448"]
+    kw = {} if sh is None else dict(shapes=sh)
+    out = pm.run(G=G, device=device, **kw)
+    if any(getattr(ops, n) is not f for n, f in real.items()):
+        raise AssertionError("[measure] profile_match left a stub in ops")
+    log(f"[measure] profile_match over {G} entries: "
+        f"{ {k: round(v, 4) for k, v in out['variants_s'].items()} } s; the "
+        f"kernels are ops' own again")
+    out = pr.run(G=G, device=device, **kw)
+    log(f"[measure] profile_rerank over {G} entries: full "
+        f"{out['full_s']:.4f} s, breakdown {out['breakdown_s']}, rates "
+        f"{out['kernel_rates']} on {card}")
+    results = {}
+    cap_kw = {} if shapes is None else dict(shapes=shapes["cap"])
+    bl.bench_spec100k(results, cb, device, G=G, **cap_kw)
+    bl.bench_spec500k(results, cb, device, G=G, **kw)
+    bl.bench_serve400k(results, cb, device, G=G, **kw)
+    bl.bench_rolled1k(results, cb, device, **kw)
+    bl.bench_mated1k(results, cb, device, **kw)
+    ranks = results["serve400k"]["planted_mate_ranks_serving"]
+    if ranks != [1, 1, 1, 1] or results["rolled1k"]["self_rank1_hits"] \
+            != "4/4" or results["mated1k"]["rank1"] != 1.0:
+        raise AssertionError(f"[measure] ladder: serve400k mates {ranks}, "
+                             f"rolled1k {results['rolled1k']}, mated1k "
+                             f"{results['mated1k']}")
+    log(f"[measure] ladder at {G} entries: spec500k memory "
+        f"{results['spec500k_codes']['memory']}, "
+        f"{results['spec500k_codes']['gallery_bytes_per_entry']:.1f} bytes "
+        f"an entry; serve400k mates {ranks}; rolled1k "
+        f"{results['rolled1k']['self_rank1_hits']}; mated1k rank-1 "
+        f"{results['mated1k']['rank1']}")
+    counts = ops.launch_counts()
+    log(f"[measure] launches {counts} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if device == "cuda" and min(counts[k] for k in MEASURE_KERNELS) <= 0:
+        raise AssertionError(f"[measure] a kernel of the scripts' paths "
+                             f"never launched: {counts}")
+
+
 def launch_split(label, fn, sym=None, reps: int = 20) -> list:
     """Host time per call (the enqueue of ``reps`` back-to-back calls, no
     synchronize) and device time per launch (torch.profiler over another
@@ -3726,6 +3835,7 @@ def main() -> int:
     from msu_latentafis_tpu_torch.matcher.engine import MatchEngine
     from msu_latentafis_tpu_torch.matcher.kernels import _build
     from msu_latentafis_tpu_torch.utils.synthetic import random_codebook
+    from msu_latentafis_tpu_torch.utils.timing import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3820,6 +3930,10 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_train(card, work)
     log(f"[phase 14] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_measure(card)
+    log(f"[phase 15] {time.perf_counter() - t0:.1f} s")
     # each kernel's launches and numbers on the main path that runs it: the
     # dense match (phase 3), 100,000-entry serving in its layout or with
     # normalize=True (phase 5), the standalone filter path (phase 6), the

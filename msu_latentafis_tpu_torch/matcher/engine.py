@@ -213,14 +213,17 @@ class MatchEngine:
             return decode_pq(codes, self.codebook_q)
         return decode_pq(codes, self.codebook_k)
 
-    def minutiae_storage(self, des: torch.Tensor):
+    def minutiae_storage(self, des: torch.Tensor,
+                         scale: Optional[float] = None):
         """Gallery minutiae descriptors (f32, any shape) -> (stored, scale):
         in the compute dtype and None, or with minu_int8 int8
         clip(round(des / s)) and s = [max|des| / 127 + 1e-12] f32, computed
-        as the JAX engine's load_gallery computes them."""
+        as the JAX engine's load_gallery computes them; a given ``scale``
+        is s instead (a gallery quantized piece by piece)."""
         if not self.minu_int8:
             return des.to(self.compute_dtype), None
-        scale = float(des.abs().max()) / 127.0 + 1e-12
+        if scale is None:
+            scale = float(des.abs().max()) / 127.0 + 1e-12
         q = torch.clamp(torch.round(ops.true_div(des, float(np.float32(
             scale)))), -127, 127).to(torch.int8)
         return q, torch.full((1,), scale, dtype=torch.float32,

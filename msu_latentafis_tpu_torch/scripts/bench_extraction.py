@@ -20,22 +20,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import tempfile
 import time
 
 import numpy as np
 import torch
-
-
-def card_line() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip().splitlines()[0]
-    except (OSError, IndexError, subprocess.SubprocessError):
-        return "unknown card"
 
 
 def run(extractor, imgs, sync_imgs) -> dict:
@@ -68,6 +57,7 @@ def main(argv=None) -> int:
     from ..config import AfisConfig
     from ..pipeline import (LatentFeatureExtractor, ModelBundle,
                             RolledFeatureExtractor)
+    from ..utils.timing import card_line
     from ..utils.synthetic import (PassThroughEnhancement, latent_image,
                                    random_bundle_variables,
                                    render_ridge_image, write_bundle_npz)
@@ -93,7 +83,8 @@ def main(argv=None) -> int:
     models.enhancement = PassThroughEnhancement().to(models.device)
     latent = run(LatentFeatureExtractor(models=models), latents[:n],
                  latents[1:n])
-    print(json.dumps({"card": card_line(), "device": str(models.device),
+    print(json.dumps({"card": card_line(args.device),
+                      "device": str(models.device),
                       "shape": [h, w], "images": args.images,
                       "rolled": rolled, "latent": latent}))
     return 0

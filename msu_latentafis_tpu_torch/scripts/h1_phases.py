@@ -81,10 +81,8 @@ def main() -> int:
     from msu_latentafis_tpu_torch.scripts import microbench_h1_probe as h1p
     from msu_latentafis_tpu_torch.scripts.microbench_body_stages import \
         cuda_ms
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
+    from msu_latentafis_tpu_torch.utils.timing import card_line
+    card = card_line()
     p = h1p.make_inputs(np.random.default_rng(0), "cuda")
     NP, K = p["lx"].shape
     plan = ops.h1_probe_plan(K, p["lx"].device.index)

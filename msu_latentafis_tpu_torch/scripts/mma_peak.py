@@ -87,15 +87,9 @@ def build() -> ctypes.CDLL:
     return dll
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-
-
 def run(emit=print) -> list:
     import torch
+    from msu_latentafis_tpu_torch.utils.timing import card_line
     dll = build()
     out = torch.zeros(1, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream

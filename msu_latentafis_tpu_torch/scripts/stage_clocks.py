@@ -39,7 +39,6 @@ import argparse
 import ctypes
 import json
 import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -260,14 +259,6 @@ def clocks(lib, kernel: str, fn, label: str, blocks, emit) -> dict:
     return rec
 
 
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-        check=True).stdout.strip().splitlines()[0]
-
-
 def make_latents(rng, n: int, cb, Lm: int, Lt: int, Rm: int, Rt: int):
     """n packed latents and their packed mates at one shape."""
     from msu_latentafis_tpu_torch.templates import pack_gallery, pack_latent
@@ -303,6 +294,7 @@ def _run(lib, emit):
     from msu_latentafis_tpu_torch.matcher.kernels import ops
     from msu_latentafis_tpu_torch.utils.synthetic import (
         device_synthetic_gallery, plant_gallery_entries, random_codebook)
+    from msu_latentafis_tpu_torch.utils.timing import card_line
     emit(json.dumps({"card": card_line()}))
     rng = np.random.default_rng(20261017)
     cb = random_codebook(rng)

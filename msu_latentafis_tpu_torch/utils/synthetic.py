@@ -17,6 +17,9 @@ from ..ops.pq import pq_encode
 from ..templates.data_model import MinuTemplate, TextureTemplate, Template
 
 DES_NORM = 1.73  # post-DR descriptor norm (descriptor_DR.py:152)
+# int8 minutiae descriptors of a synthetic gallery: the JAX generator's
+# fixed scale, which bounds every |x| <= DES_NORM without a pass over G
+MINU_INT8_SCALE = DES_NORM / 127.0 + 1e-12
 
 
 def random_descriptors(rng: np.random.Generator, n: int, dim: int = 96,
@@ -61,6 +64,7 @@ def make_rolled_template(rng: np.random.Generator, n_minu: int = 60,
                          mated_latent: Optional[Template] = None,
                          codebook: Optional[np.ndarray] = None,
                          noise: float = 0.25,
+                         tex_noise: float = 0.0,
                          mate_template_idx: int = 26) -> Template:
     """Rolled template in final-PQ form (uint8 texture codes).
 
@@ -68,6 +72,11 @@ def make_rolled_template(rng: np.random.Generator, n_minu: int = 60,
     the latent's selected minutiae template ``mate_template_idx`` and the
     texture codes PQ-encode the latent's texture descriptors (requires
     ``codebook``), so the genuine pair scores far above random impostors.
+    ``noise`` grades the minutiae-descriptor corruption and ``tex_noise``
+    the texture descriptors' before PQ encoding (renormalized to
+    DES_NORM): together they make near-mates of a controlled strength, as
+    the structured rank-parity protocol plants them. The generator is
+    drawn in the JAX package's order, so one seed gives one template.
     """
     t = Template()
     minu = random_minutiae(rng, n_minu, h, w, with_reliability=False)
@@ -92,8 +101,13 @@ def make_rolled_template(rng: np.random.Generator, n_minu: int = 60,
         k = min(n_tex, src.n_minutiae)
         tex[:k] = np.asarray(src.minutiae)[:k, :4]
         if codebook is not None and k:
-            codes[:k] = pq_encode(np.asarray(src.des)[:k], codebook,
-                                  device="cpu")
+            d = np.asarray(src.des)[:k].astype(np.float32)
+            if tex_noise > 0:
+                d = d + tex_noise * rng.standard_normal(d.shape) \
+                    .astype(np.float32)
+                d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-7
+                d *= DES_NORM
+            codes[:k] = pq_encode(d, codebook, device="cpu")
     t.add_texture_template(TextureTemplate(h=h, w=w, minutiae=tex, des=codes))
     return t
 
@@ -157,21 +171,30 @@ def synthetic_packed_gallery(rng: np.random.Generator, codebook: np.ndarray,
 
 def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
                              n_tex: int = 448, des_dim: int = 96,
-                             seed: int = 0, chunk: int = 2048,
-                             both_layouts: bool = False):
+                             codes_resident: bool = False, seed: int = 0,
+                             chunk: int = 2048, both_layouts: bool = False):
     """A DeviceGallery of G random rolled templates generated on the
-    engine's device from ``torch.Generator(seed)``, predecoded
-    (``tex_dec`` in the engine's mode: f32, bf16 or int8). With
-    ``both_layouts`` it returns the pair (predecoded, codes-resident): the
-    second holds the uint8 ``tex_codes`` the first's ``tex_dec`` decodes
-    from and shares every other tensor with it. The descriptors are drawn
-    in f32 and stored as the engine stores them (``minutiae_storage``:
-    the compute dtype, or int8 with minu_int8); the squared norms are those
-    of the f32 decode. G is padded to a block multiple; padding entries
-    have zero counts and score -1."""
+    engine's device from ``torch.Generator(seed)``, chunk by chunk.
+
+    The texture side is predecoded (``tex_dec`` in the engine's mode: f32,
+    bf16 or int8) or, with ``codes_resident``, only the uint8
+    ``tex_codes``. With ``both_layouts`` it returns the pair (predecoded,
+    codes-resident): the second holds the codes the first's ``tex_dec``
+    decodes from and shares every other tensor with it. The descriptors
+    are drawn in f32 and stored as the engine stores them: the compute
+    dtype, or with minu_int8 int8 at the JAX generator's fixed scale
+    MINU_INT8_SCALE (the JAX package's utils/synthetic.py:170), one chunk
+    at a time. The squared norms are those of each chunk's f32 decode. So
+    no G-sized f32 descriptor or predecoded texture is built beyond what
+    the gallery keeps: the peak is the gallery plus one chunk's
+    temporaries. G is padded to a block multiple; padding entries have
+    zero counts and score -1."""
     from ..matcher.engine import DeviceGallery
     from ..matcher.texture_match import decode_pq
 
+    if codes_resident and both_layouts:
+        raise ValueError("both_layouts already returns the codes-resident "
+                         "twin")
     dev = engine.device
     B = engine.block_size
     Gp = -(-G // B) * B
@@ -185,14 +208,17 @@ def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
     cb = engine.codebook_t
     S, C, _ = cb.shape
     f32 = dict(dtype=torch.float32, device=dev)
+    scale = MINU_INT8_SCALE if engine.minu_int8 else None
     t = dict(
-        minu_des=torch.empty((Gp, Rm, D), **f32),
+        minu_des=torch.empty((Gp, Rm, D), dtype=torch.int8
+                             if engine.minu_int8 else engine.compute_dtype,
+                             device=dev),
         minu_pack=torch.empty((Gp, Rm, 4), **f32),
         minu_n=torch.zeros((Gp,), dtype=torch.int32, device=dev),
-        tex_dec=torch.empty((Gp, Rt, D), dtype=engine.tex_dec_dtype,
-                            device=dev),
+        tex_dec=None if codes_resident else torch.empty(
+            (Gp, Rt, D), dtype=engine.tex_dec_dtype, device=dev),
         tex_codes=torch.zeros((Gp, Rt, S), dtype=torch.uint8, device=dev)
-        if both_layouts else None,
+        if codes_resident or both_layouts else None,
         tex_sqnorm=torch.empty((Gp, Rt), **f32),
         tex_pack=torch.empty((Gp, Rt, 4), **f32),
         tex_n=torch.zeros((Gp,), dtype=torch.int32, device=dev))
@@ -202,17 +228,20 @@ def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
         n = min(chunk, Gp - a)
         des = torch.randn((n, Rm, D), generator=gen, **f32)
         des /= des.norm(dim=2, keepdim=True) + 1e-7
-        t["minu_des"][a:a + n] = des * DES_NORM
+        t["minu_des"][a:a + n] = engine.minutiae_storage(
+            des * DES_NORM, scale)[0]
         ori = uniform((n, Rm), -np.pi, np.pi)
         t["minu_pack"][a:a + n] = torch.stack(
             [uniform((n, Rm), 24, 488), uniform((n, Rm), 24, 488),
              torch.cos(ori), torch.sin(ori)], dim=2)
         codes = torch.randint(0, C, (n, Rt, S), generator=gen, device=dev)
-        if both_layouts:
+        if t["tex_codes"] is not None:
             t["tex_codes"][a:a + n] = codes
+        if t["tex_dec"] is not None:
+            t["tex_dec"][a:a + n] = engine.predecode(codes)
         dec = decode_pq(codes, cb)
-        t["tex_dec"][a:a + n] = engine.predecode(codes)
         t["tex_sqnorm"][a:a + n] = (dec * dec).sum(dim=2)
+        del dec
         tori = uniform((n, Rt), -np.pi, np.pi)
         t["tex_pack"][a:a + n] = torch.stack(
             [torch.floor(uniform((n, Rt), 0, 30)),
@@ -222,14 +251,15 @@ def device_synthetic_gallery(engine, G: int, n_minu: int = 96,
         if v is not None:
             v[G:] = 0
     codes, dec = t.pop("tex_codes"), t.pop("tex_dec")
-    t["minu_des"], minu_scale = engine.minutiae_storage(t["minu_des"])
+    minu_scale = None if scale is None else torch.full((1,), scale, **f32)
 
     def gallery(**tex):
         return DeviceGallery(names=[str(i) for i in range(G)], n_real=G,
                              minu_scale=minu_scale, **t, **tex)
-    if not both_layouts:
-        return gallery(tex_dec=dec)
-    return gallery(tex_dec=dec), gallery(tex_codes=codes)
+    if both_layouts:
+        return gallery(tex_dec=dec), gallery(tex_codes=codes)
+    return gallery(tex_codes=codes) if codes_resident \
+        else gallery(tex_dec=dec)
 
 
 def plant_gallery_entries(gallery, engine, packed_mates,

@@ -5,12 +5,13 @@ named buckets that accumulate across calls (the reference's chrono phase
 buckets, matcher.cpp:34-44 and :715-720) and report as a dict or a table;
 ``device_trace`` wraps ``torch.profiler`` around a block of work and writes
 its Chrome trace, the counterpart of the JAX package's ``jax.profiler``
-trace.
+trace. ``card_line`` names the card beside every number measured on it.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from collections import OrderedDict
 from typing import Dict, Iterator, Optional
@@ -70,3 +71,17 @@ def device_trace(log_dir: Optional[str]) -> Iterator[None]:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def card_line(device="cuda") -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (its
+    first line); "cpu" for a CPU device. On a CUDA device a missing or
+    failing nvidia-smi raises: a card number needs its card's name."""
+    import torch
+    if torch.device(device).type == "cpu":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]

@@ -49,7 +49,10 @@ for name in ("config", "scripts.exp_screen_mfu",
              "training.markup", "training.datasets", "training.checkpoints",
              "training.pretrain", "evaluate", "evaluate.verification",
              "evaluate.search", "evaluate.pairs", "evaluate.classification",
-             "show", "scripts.gen_descriptor_pool"):
+             "show", "scripts.gen_descriptor_pool", "scripts.measure",
+             "scripts.rank_parity_100k", "scripts.rank_parity_structured",
+             "scripts.profile_rerank", "scripts.profile_match",
+             "scripts.bench_ladder"):
     assert "msu_latentafis_tpu_torch." + name in sys.modules, name
 from msu_latentafis_tpu_torch.config import AfisConfig
 from msu_latentafis_tpu_torch.pipeline import RolledFeatureExtractor
