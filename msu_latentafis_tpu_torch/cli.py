@@ -55,7 +55,18 @@ A latent with no template writes ``0`` to its CSV. The CLI prints the
 seconds of each phase (load gallery, read latents, match, correspondence
 files) and logs JSON event lines on stderr: each latent's score
 statistics, then the phases and the run's counters. ``--trace DIR``
-writes a ``torch.profiler`` trace of the matching to ``DIR/trace.json``.
+writes a ``torch.profiler`` trace of the matching to ``DIR/trace.json``
+(Chrome trace format: chrome://tracing or ui.perfetto.dev). Beside the
+host's operations and the card's kernels, on the same clock, a process row
+named "program spans" holds the engine's spans (``utils.timing.span``):
+``search`` a request (a reranked ``-l`` search, or ``-ldir``'s
+``list_to_list``), inside it ``dispatch.*`` (packing the latents and their
+kernel operands), ``screen``, ``exact`` and ``select.*`` (sorts, gathers,
+the copies to the host); each span's ``args`` give its parent, its
+request and the port's kernel launches inside it. A gap on the card's row
+under a span is host time spent there; the row's "counters" metadata holds
+the graph filter's counts (``ops.filter_counts``). Spans and counters are
+reset when the trace starts.
 ``-c`` and ``-s``
 default to the config's ``CodebookPath`` and ``ScorePath``; the config
 (``--config``, else an ``afis.config`` found from the working directory

@@ -28,6 +28,17 @@ and everything after the dot products stay f32.
 
 On a CUDA device every step runs the kernels; on the CPU the same wrappers
 run their plain PyTorch versions.
+
+While a torch profiler records, the search path records spans
+(``utils.timing.span``), named by layer (the name up to the first dot):
+``search`` (a request: each ``match_scores_batch_reranked`` and
+``list_to_list`` call), ``dispatch.pack`` (``latent_batch``,
+``list_to_list``'s bucketing), ``dispatch.side`` (``latent_side``,
+``screen_side``), ``screen`` (each ``_screen_all``), ``exact`` (each
+``_match_all``), ``select.topk`` (the stable sorts and the gather),
+``select.take`` (``DeviceGallery.take``), ``select.readback`` (the copies
+to the host and the NumPy work after them) and ``select.rank``
+(``MatchResult.ranked``).
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ import torch
 from ..templates.data_model import MatcherConstants as MC
 from ..templates.packing import (PackedGallery, PackedLatent, pack_gallery,
                                  pack_latent, repad_latent)
+from ..utils.timing import span
 from .graph_filter import coord_pack
 from .kernels import ops
 from .texture_match import decode_pq
@@ -101,11 +113,13 @@ class DeviceGallery:
         """The rows ``idx`` [m] (int64, on the gallery's device) of every
         tensor, in that order. The result is nameless: its rows are
         positions in this gallery, which names them."""
-        return DeviceGallery(
-            names=[], n_real=int(idx.shape[0]), minu_scale=self.minu_scale,
-            **{f: None if getattr(self, f) is None
-               else getattr(self, f).index_select(0, idx)
-               for f in self.TENSORS})
+        with span("select.take"):
+            return DeviceGallery(
+                names=[], n_real=int(idx.shape[0]),
+                minu_scale=self.minu_scale,
+                **{f: None if getattr(self, f) is None
+                   else getattr(self, f).index_select(0, idx)
+                   for f in self.TENSORS})
 
 
 @dataclasses.dataclass
@@ -114,10 +128,11 @@ class MatchResult:
     names: List[str]
 
     def ranked(self, k: Optional[int] = None) -> List[Tuple[str, float]]:
-        order = np.argsort(-self.scores, kind="stable")
-        if k is not None:
-            order = order[:k]
-        return [(self.names[i], float(self.scores[i])) for i in order]
+        with span("select.rank"):
+            order = np.argsort(-self.scores, kind="stable")
+            if k is not None:
+                order = order[:k]
+            return [(self.names[i], float(self.scores[i])) for i in order]
 
 
 def _valid(n: torch.Tensor, size: int) -> torch.Tensor:
@@ -285,10 +300,12 @@ class MatchEngine:
             return torch.as_tensor(np.stack([getattr(l, attr) for l in lats]),
                                    device=self.device).to(dtype)
         f32, i32 = torch.float32, torch.int32
-        return dict(minu_des=f("minu_des", f32), minu_xy=f("minu_xy", f32),
-                    minu_ori=f("minu_ori", f32), minu_n=f("minu_n", i32),
-                    tex_des=f("tex_des", f32), tex_xy=f("tex_xy", f32),
-                    tex_ori=f("tex_ori", f32), tex_n=f("tex_n", i32))
+        with span("dispatch.pack"):
+            return dict(
+                minu_des=f("minu_des", f32), minu_xy=f("minu_xy", f32),
+                minu_ori=f("minu_ori", f32), minu_n=f("minu_n", i32),
+                tex_des=f("tex_des", f32), tex_xy=f("tex_xy", f32),
+                tex_ori=f("tex_ori", f32), tex_n=f("tex_n", i32))
 
     def latent_side(self, lat: dict, gal: DeviceGallery,
                     screen: bool = False) -> dict:
@@ -298,6 +315,10 @@ class MatchEngine:
         over an int8 predecoded gallery (x * tex_scale; the dense path
         rounds x to the compute dtype before scaling, the screen after).
         The squared norms stay f32, from the unrounded descriptors."""
+        with span("dispatch.side"):
+            return self._side(lat, gal, screen)
+
+    def _side(self, lat: dict, gal: DeviceGallery, screen: bool) -> dict:
         NL, T, Lm, D = lat["minu_des"].shape
         Lt = lat["tex_des"].shape[1]
         cdt = self.compute_dtype
@@ -358,6 +379,11 @@ class MatchEngine:
         B = self.block_size
         if gal.size % B:
             raise ValueError(f"gallery size {gal.size} is not a multiple of {B}")
+        with span("exact"):
+            return self._exact(lat, gal, components)
+
+    def _exact(self, lat: dict, gal: DeviceGallery, components: bool):
+        B = self.block_size
         L = self.latent_side(lat, gal)
         adc_kernel = ops.adc_rowmax_codes if gal.codes_resident \
             else ops.adc_rowmax
@@ -384,15 +410,16 @@ class MatchEngine:
         cheap first stage of two-stage screening: the first ``lt_cap``
         texture minutiae and the first ``minu_t_cap`` minutiae templates
         (0 keeps all)."""
-        lat = dict(lat)
-        if minu_t_cap:
-            for k in ("minu_des", "minu_xy", "minu_ori", "minu_n"):
-                lat[k] = lat[k][:, :minu_t_cap]
-        if lt_cap:
-            for k in ("tex_des", "tex_xy", "tex_ori"):
-                lat[k] = lat[k][:, :lt_cap]
-            lat["tex_n"] = torch.clamp(lat["tex_n"], max=lt_cap)
-        return self.latent_side(lat, gal, screen=True)
+        with span("dispatch.side"):
+            lat = dict(lat)
+            if minu_t_cap:
+                for k in ("minu_des", "minu_xy", "minu_ori", "minu_n"):
+                    lat[k] = lat[k][:, :minu_t_cap]
+            if lt_cap:
+                for k in ("tex_des", "tex_xy", "tex_ori"):
+                    lat[k] = lat[k][:, :lt_cap]
+                lat["tex_n"] = torch.clamp(lat["tex_n"], max=lt_cap)
+            return self._side(lat, gal, screen=True)
 
     def screen_args(self, L: dict, gal: DeviceGallery, rows: slice):
         """Keyword arguments of minu_screen and adc_screen (adc_screen_codes
@@ -424,6 +451,11 @@ class MatchEngine:
         so that the int8 screen's scale groups are the JAX engine's
         blocks).
         """
+        with span("screen"):
+            return self._screen(lat, gal, tau, normalize, lt_cap, minu_t_cap)
+
+    def _screen(self, lat: dict, gal: DeviceGallery, tau: float,
+                normalize: bool, lt_cap: int, minu_t_cap: int) -> torch.Tensor:
         L = self.screen_side(lat, gal, lt_cap, minu_t_cap)
         adc_kernel = ops.adc_screen_codes if gal.codes_resident \
             else ops.adc_screen
@@ -480,6 +512,12 @@ class MatchEngine:
         as in the JAX engine, but certify nothing then: the normalized
         screen is no upper bound on the exact score.
         """
+        with span("search"):
+            return self._reranked(latents, gallery, m, tau, normalize,
+                                  prescreen_k, prescreen_lt, prescreen_t)
+
+    def _reranked(self, latents, gallery, m, tau, normalize, prescreen_k,
+                  prescreen_lt, prescreen_t):
         B = self.block_size
         lat = self.latent_batch(latents)
         NL = lat["minu_des"].shape[0]
@@ -487,8 +525,9 @@ class MatchEngine:
         m_pad = min(-(-min(m, G) // B) * B, G)
 
         def topk(s, k):
-            v, i = torch.sort(s, dim=1, descending=True, stable=True)
-            return v[:, :k], i[:, :k]
+            with span("select.topk"):
+                v, i = torch.sort(s, dim=1, descending=True, stable=True)
+                return v[:, :k], i[:, :k]
 
         if prescreen_k and prescreen_k < G:
             k1 = max(B, (prescreen_k // B) * B)
@@ -503,7 +542,8 @@ class MatchEngine:
                     _row(lat, i), gallery.take(cand[i]), tau=tau,
                     normalize=normalize) for i in range(NL)])
                 topv, sel = topk(s2, min(m_pad + 1, k1))
-                topi = torch.gather(cand, 1, sel)
+                with span("select.topk"):
+                    topi = torch.gather(cand, 1, sel)
         else:
             topv, topi = topk(self._screen_all(lat, gallery, tau=tau,
                                                normalize=normalize),
@@ -511,17 +551,18 @@ class MatchEngine:
         exact = torch.cat([self._match_all(_row(lat, i),
                                            gallery.take(topi[i, :m_pad]))
                            for i in range(NL)])
-        idx = topi[:, :m_pad].cpu().numpy()
-        exact = exact.cpu().numpy()
-        if prescreen_k:
-            nan = np.full((NL,), np.nan, np.float32)
-            return idx, exact, nan, nan
-        outside = (topv[:, m_pad].cpu().numpy() if m_pad < G
-                   else np.full((NL,), -np.inf, np.float32))
-        order = np.argsort(-exact, axis=1, kind="stable")
-        k24 = min(24, m_pad) - 1
-        margin = exact[np.arange(NL), order[:, k24]] - outside
-        return idx, exact, margin, outside
+        with span("select.readback"):
+            idx = topi[:, :m_pad].cpu().numpy()
+            exact = exact.cpu().numpy()
+            if prescreen_k:
+                nan = np.full((NL,), np.nan, np.float32)
+                return idx, exact, nan, nan
+            outside = (topv[:, m_pad].cpu().numpy() if m_pad < G
+                       else np.full((NL,), -np.inf, np.float32))
+            order = np.argsort(-exact, axis=1, kind="stable")
+            k24 = min(24, m_pad) - 1
+            margin = exact[np.arange(NL), order[:, k24]] - outside
+            return idx, exact, margin, outside
 
     # ------------------------------------------------------------------
     def match_scores(self, latent: PackedLatent,
@@ -537,7 +578,9 @@ class MatchEngine:
     def one_to_list(self, latent: PackedLatent,
                     gallery: DeviceGallery) -> MatchResult:
         scores = self.match_scores(latent, gallery)[:gallery.n_real]
-        return MatchResult(scores=scores.cpu().numpy(), names=gallery.names)
+        with span("select.readback"):
+            scores = scores.cpu().numpy()
+        return MatchResult(scores=scores, names=gallery.names)
 
     def one_to_one_all_templates(self, latent, rolled) -> np.ndarray:
         """Unfused score vector for ONE latent / rolled Template pair: every
@@ -581,23 +624,29 @@ class MatchEngine:
         through ``match_scores_batch``: the JAX engine's buckets, which
         bound its compiles; here they give each batch the one shape that
         ``latent_batch`` stacks."""
-        buckets: dict = {}
-        for i, lat in enumerate(latents):
-            blm = -(-max(int(lat.minu_n.max()), 1) // LM_BUCKET) * LM_BUCKET
-            blt = -(-max(int(lat.tex_n), 1) // LT_BUCKET) * LT_BUCKET
-            key = (lat.minu_des.shape[0], blm, blt, lat.minu_des.shape[2])
-            buckets.setdefault(key, []).append(
-                (i, repad_latent(lat, blm, blt)))
-        out: List[Optional[MatchResult]] = [None] * len(latents)
-        for _, group in sorted(buckets.items()):
-            for start in range(0, len(group), MAX_BATCH):
-                chunk = group[start:start + MAX_BATCH]
-                scores = self.match_scores_batch([l for _, l in chunk],
-                                                 gallery)
-                scores = scores[:, :gallery.n_real].cpu().numpy()
-                for (i, _), s in zip(chunk, scores):
-                    out[i] = MatchResult(scores=s, names=gallery.names)
-        return out  # type: ignore[return-value]
+        with span("search"):
+            with span("dispatch.pack"):
+                buckets: dict = {}
+                for i, lat in enumerate(latents):
+                    blm = -(-max(int(lat.minu_n.max()), 1) // LM_BUCKET) \
+                        * LM_BUCKET
+                    blt = -(-max(int(lat.tex_n), 1) // LT_BUCKET) * LT_BUCKET
+                    key = (lat.minu_des.shape[0], blm, blt,
+                           lat.minu_des.shape[2])
+                    buckets.setdefault(key, []).append(
+                        (i, repad_latent(lat, blm, blt)))
+            out: List[Optional[MatchResult]] = [None] * len(latents)
+            for _, group in sorted(buckets.items()):
+                for start in range(0, len(group), MAX_BATCH):
+                    chunk = group[start:start + MAX_BATCH]
+                    scores = self.match_scores_batch([l for _, l in chunk],
+                                                     gallery)
+                    with span("select.readback"):
+                        scores = scores[:, :gallery.n_real].cpu().numpy()
+                        for (i, _), s in zip(chunk, scores):
+                            out[i] = MatchResult(scores=s,
+                                                 names=gallery.names)
+            return out  # type: ignore[return-value]
 
     def one_to_list_reranked(self, latent: PackedLatent,
                              gallery: DeviceGallery, m: int = 512,

@@ -44,8 +44,10 @@ SIGNATURES = {
     "afis_adc_screen_codes": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
     "afis_minu_screen": [_P] * 5 + [_I] * 7 + [_P],
     "afis_minu_screen_norm": [_P] * 5 + [_I] * 7 + [_P],
-    "afis_texture_match": [_P] * 6 + [_I] * 7 + [_P],
-    "afis_minutiae_match": [_P] * 8 + [_I] * 12 + [_P],
+    "afis_texture_match": [_P] * 6 + [_I] * 8 + [_P],
+    "afis_texture_match_counts": [_P, _I],
+    "afis_minutiae_match": [_P] * 8 + [_I] * 13 + [_P],
+    "afis_minutiae_match_counts": [_P, _I],
     "afis_minutiae_match_workspace": [_I] * 5,
     "afis_minutiae_match_blocks": [_I] * 7,
     "afis_graph_filter_packed": [_P] * 7 + [_I] * 6 + [_P],

@@ -644,8 +644,27 @@ __device__ float seq_total(Filter& f, int n, const V& v) {
   return total;
 }
 
+// The graph filter's data-dependent work, counted per set while the
+// program records (utils/timing.py): counts[0] += 1 set, counts[1] +=
+// k_valid^2, counts[2] += n_stage1^2, the inputs of the filter's operation
+// count. Warp 0 counts the valid slots; one atomic per term and set.
+__device__ inline void count_set(unsigned long long* counts, const Filter& f,
+                                 int n_stage1) {
+  int k = 0;
+  for (int i = threadIdx.x; i < f.K; i += 32) k += f.vf[i] ? 1 : 0;
+  for (int off = 16; off > 0; off >>= 1) k += __shfl_xor_sync(kFull, k, off);
+  if (threadIdx.x == 0) {
+    atomicAdd(&counts[0], 1ull);
+    atomicAdd(&counts[1], (unsigned long long)k * (unsigned long long)k);
+    atomicAdd(&counts[2],
+              (unsigned long long)n_stage1 * (unsigned long long)n_stage1);
+  }
+}
+
 // Both stages over the K slots of f (filled, vf = 0 on empty slots, ties
-// set, block synchronized). Returns the score in every thread.
+// set, block synchronized). Returns the score in every thread. With
+// ``counts`` set (block-uniform) each set is counted (count_set); nullptr
+// skips the counting.
 //
 // ``stages`` < 6 is the JAX package's bench hook (_filter_body :213-381):
 // it returns a partial sum instead of the score, 0 the I/O floor sum(val *
@@ -655,7 +674,8 @@ __device__ float seq_total(Filter& f, int n, const V& v) {
 // runs on the first stage2_cap survivors in rank order (a survivor past
 // the cap is dropped) while its seed 1 / n2 still counts every survivor.
 __device__ inline float filter_run(Filter& f, bool lookup, int dist_iters,
-                                   int stages = 6, int stage2_cap = 0) {
+                                   int stages = 6, int stage2_cap = 0,
+                                   unsigned long long* counts = nullptr) {
   const int K = f.K;
 
   if (stages <= 0) {
@@ -700,6 +720,7 @@ __device__ inline float filter_run(Filter& f, bool lookup, int dist_iters,
   // stage2_cap of them when 0 < stage2_cap < K
   const int n2 = block_scan_count(K, [&](int i) { return bit_of(f.sel, i); },
                                   f.pos, f.hist);
+  if (counts != nullptr && threadIdx.x < 32) count_set(counts, f, n2);
   const int nc = (stage2_cap > 0 && stage2_cap < K && n2 > stage2_cap)
       ? stage2_cap : n2;
   for (int k = threadIdx.x; k < K; k += blockDim.x)

@@ -71,6 +71,10 @@
 #include "dtypes.cuh"
 #include "filter_body.cuh"
 
+// The graph filter's counts over every launch made with count != 0 since
+// the last reset (filter_body.cuh's count_set).
+__device__ unsigned long long g_minu_filter_counts[3];
+
 namespace {
 
 using namespace afis;
@@ -395,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, 2) minutiae_match_kernel(
     const float* __restrict__ lpack, const float* __restrict__ rpack,
     float* __restrict__ out, float* __restrict__ ws, const MinuLayout L,
     int NT, int P, int B, int R, int D, int K, int row_cap, int lookup,
-    int dist_iters) {
+    int dist_iters, unsigned long long* __restrict__ counts) {
   extern __shared__ uint32_t smem[];
   const float SENT = -3.f;
   const int C = row_cap * P, DP = L.DP, RS = L.RS;
@@ -618,7 +622,8 @@ __global__ void __launch_bounds__(kThreads, 2) minutiae_match_kernel(
       f.tie1[k] = -((float)l * (float)R + (float)r);   // spec flat index, negated
     }
     __syncthreads();
-    const float score = filter_run(f, lookup != 0, dist_iters);
+    const float score = filter_run(f, lookup != 0, dist_iters, 6, 0,
+                                   counts);
     if (threadIdx.x == 0) out[(size_t)t * B + b] = score;
   }
 }
@@ -682,14 +687,16 @@ extern "C" int afis_minutiae_match_blocks(int P, int R, int D, int K,
 
 // ``ws`` holds ``ws_blocks`` slices of afis_minutiae_match_workspace()
 // floats when that is not 0 (the grid is then ws_blocks); else it is unused.
-// ltype / rtype: the descriptors' type codes (dtypes.cuh).
+// ltype / rtype: the descriptors' type codes (dtypes.cuh). count != 0
+// counts the graph filter's sets into g_minu_filter_counts.
 extern "C" int afis_minutiae_match(const void* ldes, const float* lvalid,
                                    const void* rdes, const float* rvalid,
                                    const float* lpack, const float* rpack,
                                    float* out, float* ws, int ws_blocks,
                                    int NT, int P, int B, int R, int D, int K,
                                    int row_cap, int lookup, int dist_iters,
-                                   int ltype, int rtype, void* stream) {
+                                   int ltype, int rtype, int count,
+                                   void* stream) {
   if (NT <= 0 || B <= 0 || dist_iters < 0
       || !valid_args(P, R, D, K, row_cap))
     return (int)cudaErrorInvalidValue;
@@ -699,6 +706,12 @@ extern "C" int afis_minutiae_match(const void* ldes, const float* lvalid,
       || (L.global && (ws == nullptr || ws_blocks <= 0)))
     return (int)cudaErrorInvalidValue;
   const int grid = L.global ? std::min(ws_blocks, NT * B) : NT * B;
+  unsigned long long* counts = nullptr;
+  if (count) {
+    const cudaError_t ce = cudaGetSymbolAddress(
+        reinterpret_cast<void**>(&counts), g_minu_filter_counts);
+    if (ce != cudaSuccess) return (int)ce;
+  }
   return afis_t::dispatch_pair(ltype, rtype, [&](auto lt, auto rt) {
     using LT = typename decltype(lt)::type;
     using RT = typename decltype(rt)::type;
@@ -710,7 +723,20 @@ extern "C" int afis_minutiae_match(const void* ldes, const float* lvalid,
         <<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
             static_cast<const LT*>(ldes), lvalid,
             static_cast<const RT*>(rdes), rvalid, lpack, rpack, out, ws, L,
-            NT, P, B, R, D, K, row_cap, lookup, dist_iters);
+            NT, P, B, R, D, K, row_cap, lookup, dist_iters, counts);
     return (int)cudaGetLastError();
   });
+}
+
+// out [3] = the counts of g_minu_filter_counts: sets, sum of k_valid^2 and sum
+// of n_stage1^2 (count_set in filter_body.cuh); reset != 0 zeroes them.
+extern "C" int afis_minutiae_match_counts(long long* out, int reset) {
+  unsigned long long h[3] = {0, 0, 0};
+  cudaError_t e = cudaMemcpyFromSymbol(h, g_minu_filter_counts, sizeof h);
+  if (e == cudaSuccess && reset) {
+    const unsigned long long z[3] = {0, 0, 0};
+    e = cudaMemcpyToSymbol(g_minu_filter_counts, z, sizeof z);
+  }
+  for (int i = 0; i < 3; ++i) out[i] = (long long)h[i];
+  return (int)e;
 }

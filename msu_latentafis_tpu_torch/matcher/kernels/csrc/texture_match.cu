@@ -29,6 +29,10 @@
 
 #include "filter_body.cuh"
 
+// The graph filter's counts over every launch made with count != 0 since
+// the last reset (filter_body.cuh's count_set).
+__device__ unsigned long long g_tex_filter_counts[3];
+
 namespace {
 
 using namespace afis;
@@ -41,7 +45,8 @@ __global__ void __launch_bounds__(kThreads) texture_match_kernel(
     const float* __restrict__ best, const int* __restrict__ bestj,
     const float* __restrict__ lvalid, const float* __restrict__ lpack,
     const float* __restrict__ rpack, float* __restrict__ out, int B, int Lt,
-    int R, int K, int lookup, int dist_iters, int full, int region) {
+    int R, int K, int lookup, int dist_iters, int full, int region,
+    unsigned long long* __restrict__ counts) {
   extern __shared__ uint32_t smem[];
   const float SENT = -1e4f;
   const int pair = blockIdx.x;                 // n * B + b
@@ -125,17 +130,18 @@ __global__ void __launch_bounds__(kThreads) texture_match_kernel(
     f.tie1[k] = 0.f;
   }
   __syncthreads();
-  const float score = filter_run(f, lookup != 0, dist_iters);
+  const float score = filter_run(f, lookup != 0, dist_iters, 6, 0, counts);
   if (threadIdx.x == 0) out[pair] = score;
 }
 
 }  // namespace
 
+// count != 0 counts the graph filter's sets into g_tex_filter_counts.
 extern "C" int afis_texture_match(const float* best, const int* bestj,
                                   const float* lvalid, const float* lpack,
                                   const float* rpack, float* out, int NL,
                                   int B, int Lt, int R, int K, int lookup,
-                                  int dist_iters, void* stream) {
+                                  int dist_iters, int count, void* stream) {
   if (NL <= 0 || B <= 0 || Lt <= 0 || R <= 0 || K <= 0 || K > kMaxK
       || K > Lt || dist_iters < 0)
     return (int)cudaErrorInvalidValue;
@@ -153,6 +159,12 @@ extern "C" int afis_texture_match(const float* best, const int* bestj,
   auto words = [&](bool full) {
     return (size_t)(64 + texture_region(Lt, K, full) + filter_words(K));
   };
+  unsigned long long* counts = nullptr;
+  if (count) {
+    const cudaError_t ce = cudaGetSymbolAddress(
+        reinterpret_cast<void**>(&counts), g_tex_filter_counts);
+    if (ce != cudaSuccess) return (int)ce;
+  }
   const bool full =
       (long long)NL * B <= sms && words(true) * 4 <= (size_t)optin;
   const int region = texture_region(Lt, K, full);
@@ -163,6 +175,19 @@ extern "C" int afis_texture_match(const float* best, const int* bestj,
   if (e != cudaSuccess) return (int)e;
   texture_match_kernel<<<NL * B, kThreads, bytes, (cudaStream_t)stream>>>(
       best, bestj, lvalid, lpack, rpack, out, B, Lt, R, K, lookup,
-      dist_iters, full, region);
+      dist_iters, full, region, counts);
   return (int)cudaGetLastError();
+}
+
+// out [3] = the counts of g_tex_filter_counts: sets, sum of k_valid^2 and sum
+// of n_stage1^2 (count_set in filter_body.cuh); reset != 0 zeroes them.
+extern "C" int afis_texture_match_counts(long long* out, int reset) {
+  unsigned long long h[3] = {0, 0, 0};
+  cudaError_t e = cudaMemcpyFromSymbol(h, g_tex_filter_counts, sizeof h);
+  if (e == cudaSuccess && reset) {
+    const unsigned long long z[3] = {0, 0, 0};
+    e = cudaMemcpyToSymbol(g_tex_filter_counts, z, sizeof z);
+  }
+  for (int i = 0; i < 3; ++i) out[i] = (long long)h[i];
+  return (int)e;
 }

@@ -5,6 +5,9 @@ outputs, and then either runs the plain PyTorch version (the tensors lie
 on the CPU) or launches the CUDA kernel on the current stream (they lie on
 a CUDA device) and raises if the launch was refused. There is no fallback
 from one to the other. ``<wrapper>.launches`` counts kernel launches.
+While the program records (``utils.timing.recording``), ``minutiae_match``
+and ``texture_match`` also count their graph filter's work
+(``filter_counts``).
 
 The plain versions are the kernels' specification: the same arithmetic in
 the same order, so a kernel and its plain version agree bit for bit on the
@@ -74,6 +77,7 @@ from ..graph_filter import (coord_pack, filter_correspondences, seq_dots,
 from ..minutiae_match import (SENT as MINU_SENT, minutiae_similarity,
                               mutual_normalize, row_candidates)
 from ..texture_match import decode_pq
+from ...utils.timing import recording
 from . import _build
 
 NEG_BIG = -1e30          # invalid rolled columns of the ADC similarity
@@ -110,6 +114,11 @@ KERNELS = ("adc_rowmax", "texture_match", "minutiae_match", "minu_screen",
            "minu_screen_norm", "graph_filter_packed", "graph_filter",
            "graph_filter_infuse", "screen_t_bf16", "screen_t_int8",
            "h1_probe", "legality_canary")
+# the kernels whose graph filter ``filter_counts`` counts, and what it counts
+# of each: sets filtered, sum of k_valid^2 (valid slots) and sum of
+# n_stage1^2 (stage-1 survivors), the inputs of the filter's operation count
+FILTER_COUNTED = ("minutiae_match", "texture_match")
+FILTER_KEYS = ("sets", "k_valid_sq", "n_stage1_sq")
 # operand type -> the type code of the CUDA launchers (csrc/dtypes.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 FLOATS = (torch.float32, torch.bfloat16)
@@ -117,6 +126,42 @@ FLOATS = (torch.float32, torch.bfloat16)
 
 def launch_counts() -> dict:
     return {k: globals()[k].launches for k in KERNELS}
+
+
+def filter_counts(reset: bool = False) -> dict:
+    """The graph filter's work in each of ``FILTER_COUNTED`` over the calls
+    made while the program recorded, since the last reset: {kernel:
+    {sets, k_valid_sq, n_stage1_sq}}. The card's counts (the current
+    device's, ``count_set`` in csrc/filter_body.cuh) are read where a kernel
+    has loaded the library; the plain versions add theirs from
+    ``filter_correspondences``'s stats."""
+    out = {k: dict(zip(FILTER_KEYS, v)) for k, v in _plain_filter.items()}
+    if reset:
+        for v in _plain_filter.values():
+            v[:] = [0, 0, 0]
+    if _build.load.cache_info().currsize:
+        torch.cuda.synchronize()
+        lib = _build.load()
+        for k in FILTER_COUNTED:
+            got = (ctypes.c_longlong * 3)()
+            _build.check(getattr(lib, f"afis_{k}_counts")(got, int(reset)),
+                         f"{k}_counts")
+            for key, v in zip(FILTER_KEYS, got):
+                out[k][key] += v
+    return out
+
+
+_plain_filter = {k: [0, 0, 0] for k in FILTER_COUNTED}
+
+
+def _count_plain(kernel: str, stats: Optional[dict]) -> None:
+    if stats is None:
+        return
+    k, n = stats["k_valid"].long(), stats["n_stage1"].long()
+    c = _plain_filter[kernel]
+    c[0] += k.numel()
+    c[1] += int((k * k).sum())
+    c[2] += int((n * n).sum())
 
 
 def reset_launch_counts() -> None:
@@ -943,15 +988,19 @@ def texture_match(best: torch.Tensor, bestj: torch.Tensor,
     _check("lpack", lpack, (NL, Lt, 4), f32, dev)
     _check("rpack", rpack, (B, R, 4), f32, dev)
     if not _is_cuda(dev):
-        return texture_match_plain(best, bestj, lvalid, lpack, rpack, top_n,
-                                   lookup, dist_iters)
+        stats = {} if recording() else None
+        out = texture_match_plain(best, bestj, lvalid, lpack, rpack, top_n,
+                                  lookup, dist_iters, stats)
+        _count_plain("texture_match", stats)
+        return out
     if K > MAX_K:
         raise ValueError(f"texture_match: K={K} > {MAX_K}")
     out = torch.empty((NL, B), dtype=f32, device=dev)
     lib = _build.load()
     err = lib.afis_texture_match(
         *(t.data_ptr() for t in (best, bestj, lvalid, lpack, rpack, out)),
-        NL, B, Lt, R, K, int(lookup), dist_iters, _stream(dev))
+        NL, B, Lt, R, K, int(lookup), dist_iters, int(recording()),
+        _stream(dev))
     _build.check(err, "texture_match")
     texture_match.launches += 1
     return out
@@ -1025,8 +1074,11 @@ def minutiae_match(ldes: torch.Tensor, lvalid: torch.Tensor,
     if row_cap < 1:
         raise ValueError("row_cap must be >= 1")
     if not _is_cuda(dev):
-        return minutiae_match_plain(ldes, lvalid, rdes, rvalid, lpack, rpack,
-                                    top_n, row_cap, lookup, dist_iters)
+        stats = {} if recording() else None
+        out = minutiae_match_plain(ldes, lvalid, rdes, rvalid, lpack, rpack,
+                                   top_n, row_cap, lookup, dist_iters, stats)
+        _count_plain("minutiae_match", stats)
+        return out
     if K > MAX_K:
         raise ValueError(f"minutiae_match: K={K} > {MAX_K}")
     lib = _build.load()
@@ -1050,7 +1102,8 @@ def minutiae_match(ldes: torch.Tensor, lvalid: torch.Tensor,
                                  out)),
         None if ws is None else ws.data_ptr(), nblk,
         NT, P, B, R, D, K, row_cap, int(lookup), dist_iters,
-        DTYPE_CODE[ldes.dtype], DTYPE_CODE[rdes.dtype], _stream(dev))
+        DTYPE_CODE[ldes.dtype], DTYPE_CODE[rdes.dtype], int(recording()),
+        _stream(dev))
     _build.check(err, "minutiae_match")
     minutiae_match.launches += 1
     return out

@@ -188,7 +188,8 @@ def test_ldir_score_files_match_jax_cli(files, tmp_path, monkeypatch,
     """-ldir: one score file per latent, every entry's score, as the JAX
     CLI writes it; the empty latent's file holds 0; the mates lead. The
     CLI prints its phases, logs each latent's score statistics and the
-    run's phases as JSON events, and --trace writes a trace."""
+    run's phases as JSON events, and --trace writes a trace with the
+    engine's spans."""
     cb, cbf, gdir, ldir = files
     _port_cli(monkeypatch)
     monkeypatch.setenv("AFIS_COMPILE_CACHE", str(tmp_path / "jax_cache"))
@@ -201,7 +202,9 @@ def test_ldir_score_files_match_jax_cli(files, tmp_path, monkeypatch,
     assert "native loader" in out and f"Matched {len(LATENTS)} latents" in out
     for phase in ("load gallery", "read latents", "match"):
         assert phase in out
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    spans = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "span"]
+    assert spans.count("search") == 1 and "exact" in spans
     events = [json.loads(r.getMessage()) for r in caplog.records]
     stats = {e["latent"]: e for e in events if e["event"] == "scores"}
     assert sorted(stats) == [f"lat{i}" for i in range(len(LATENTS))]
