@@ -42,6 +42,8 @@ SIGNATURES = {
     "afis_adc_rowmax_counts": [_P, _I],
     "afis_adc_screen": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "afis_adc_screen_codes": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    "afis_adc_screen_body": [_I] * 7,
+    "afis_adc_screen_codes_body": [_I] * 8,
     "afis_minu_screen": [_P] * 5 + [_I] * 7 + [_P],
     "afis_minu_screen_norm": [_P] * 5 + [_I] * 7 + [_P],
     "afis_texture_match": [_P] * 6 + [_I] * 8 + [_P],

@@ -22,31 +22,34 @@
 //
 // Bound: operations, 2 NL Lt Rt D flops per entry (44 MFLOP at the
 // prescreen's NL 8 x Lt 64, Rt 448, D 96) against the entry's 172 KB of
-// f32 descriptors (86 KB in bf16, 43 KB in int8). Design: the two bodies of
-// screen_body.cuh, shared with the codes screen, with the predecoded
-// column source:
-//   - x bf16 ([bf16,bf16], [bf16,int8]), D <= 96: tensor cores. Each
-//     entry's columns are copied in tiles of 128 by cp.async into a ring of
-//     three stages (two tiles load while one computes); an int8 tile is
-//     widened to bf16 exactly once it has arrived (|v| <= 127 fits bf16's
-//     significand, so every product x dec is exact in f32). a1 / a2 arrive
-//     per tile beside it. The A fragments of up to 512 latent rows stay in
-//     registers for the block's life (4 x 448 rows: four groups, each with
-//     its blocks; 4 x 1,000: groups of 512 walked per entry). Only the
-//     order of the f32 accumulation differs from the plain version: a row
-//     maximum may round to the neighbouring bf16 value (ops.screen_slack).
-//     On the same entry the bf16 codes screen gives the same bits.
-//   - x f32 ([f32,f32], [f32,int8]): CUDA cores, each dot in index order
-//     with one rounding per product and per sum, bit for bit the plain
-//     version and the f32 codes screen. The tile is staged at the top of
-//     its step, widened to f32, while the block's first 64-row tile of
-//     latent rows streams in by cp.async.
+// f32 descriptors (86 KB in bf16, 43 KB in int8). Design: one body per
+// operand type, shared with the codes screen, with the predecoded column
+// source; afis_adc_screen_body names the one a shape takes (ops.
+// SCREEN_BODIES):
+//   - x bf16 ([bf16,bf16], [bf16,int8]), D <= 96: "wgmma", the
+//     warp-specialized body of screen_wg.cuh. A producer warpgroup brings
+//     each entry's columns in by bulk copies, tiles of 128, and widens an
+//     int8 tile to bf16 exactly (|v| <= 127 fits bf16's significand, so
+//     every product x dec is exact in f32) into the layout wgmma reads;
+//     two consumer warpgroups keep up to 512 latent rows' A fragments in
+//     registers (4 x 448 rows: four groups, each with its blocks; 4 x
+//     1,000: groups of 512 walked per entry) and take turns between their
+//     products and their row-max folds. Only the order of the f32
+//     accumulation differs from the plain version: a row maximum may round
+//     to the neighbouring bf16 value (ops.screen_slack). On the same entry
+//     the bf16 codes screen gives the same bits.
+//   - x f32 ([f32,f32], [f32,int8]): "f32 body", CUDA cores
+//     (screen_body.cuh), each dot in index order with one rounding per
+//     product and per sum, bit for bit the plain version and the f32 codes
+//     screen. The tile is staged at the top of its step, widened to f32,
+//     while the block's first 64-row tile of latent rows streams in by
+//     cp.async.
 //   - outside that envelope (bf16 with D > 96, or an f32 tile and its row
-//     maxima beyond the card's shared memory, D above ~270): the widened
-//     CUDA-core kernel below, one block per (latent, entry) on
+//     maxima beyond the card's shared memory, D above ~270): "CUDA-core
+//     tiles", the widened kernel below, one block per (latent, entry) on
 //     adc_tile.cuh's 64 x 64 tiles, bit for bit the plain version.
 #include "adc_tile.cuh"
-#include "screen_body.cuh"
+#include "screen_wg.cuh"
 
 namespace {
 
@@ -130,6 +133,74 @@ int launch_tiles(const XT* x, const float* lsq, const float* lvalid,
   return (int)cudaGetLastError();
 }
 
+enum Body { kBodyWg = 0, kBodyF32 = 1, kBodyTiles = 2 };
+
+// One launch's operands; with `body` set, plan only and report the body.
+struct Args {
+  const void* x;
+  const float* lsq;
+  const float* lvalid;
+  const float* a1;
+  const float* a2;
+  float* out;
+  int NL, Lt, B, Rt, D;
+  float tau;
+  void* stream;
+  int* body;
+};
+
+int screen(const Args& a, const void* dec, int xtype, int dtype) {
+  using namespace afis_screen;
+  if (a.NL <= 0 || a.Lt <= 0 || a.B <= 0 || a.Rt <= 0 || a.D <= 0
+      || (long long)a.NL * a.B > 0x7fffffffLL
+      || (long long)a.NL * a.Lt > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const size_t optin = smem_optin();
+  return afis_t::dispatch_pair(xtype, dtype, [&](auto xt, auto dt) {
+    using XT = typename decltype(xt)::type;
+    using DT = typename decltype(dt)::type;
+    const XT* xx = static_cast<const XT*>(a.x);
+    const DT* dd = static_cast<const DT*>(dec);
+    Walk w{a.B, a.Rt, kCT, (a.Rt + kCT - 1) / kCT, 1, 1, false};
+    if constexpr (std::is_same<XT, bf16>::value) {
+      LatRows<bf16> rows{xx, a.lsq, a.lvalid, a.out, a.NL, a.Lt, a.B, a.D,
+                         a.NL * a.Lt, 0, a.tau};
+      plan_wg(rows, w);
+      const uintptr_t p = reinterpret_cast<uintptr_t>(dd);
+      const WgDec<DT> src{dd, a.a1, a.a2, a.D,
+                          a.D * sizeof(DT) % 16 == 0 && p % 16 == 0};
+      if (a.D <= kDMax && wg_smem_bytes(src, rows) <= optin) {
+        if (a.body) {
+          *a.body = kBodyWg;
+          return 0;
+        }
+        return launch_wg(src, rows, w, a.stream);
+      }
+    } else {
+      LatRows<float> rows{xx, a.lsq, a.lvalid, a.out, a.NL, a.Lt, a.B, a.D,
+                          a.NL * a.Lt, 0, a.tau};
+      plan_f32(rows, w);
+      const uintptr_t p = reinterpret_cast<uintptr_t>(dd);
+      const CopyF32<DT> src{dd, a.a1, a.a2, a.D,
+                            a.D % 4 == 0 && p % (4 * sizeof(DT)) == 0};
+      if (f32_smem_bytes(rows) <= optin) {
+        if (a.body) {
+          *a.body = kBodyF32;
+          return 0;
+        }
+        return launch_f32(src, rows, w, a.stream);
+      }
+    }
+    if (a.body) {
+      *a.body = kBodyTiles;
+      return 0;
+    }
+    return launch_tiles(xx, a.lsq, a.lvalid, afis_adc::DecCols<DT>{dd}, a.a1,
+                        a.a2, a.out, a.NL, a.Lt, a.B, a.Rt, a.D, a.tau,
+                        a.stream);
+  });
+}
+
 }  // namespace
 
 // xtype / dtype: the operands' type codes (dtypes.cuh); a1 / a2 [B, Rt].
@@ -139,37 +210,18 @@ extern "C" int afis_adc_screen(const void* x, const float* lsq,
                                int NL, int Lt, int B, int Rt, int D,
                                float tau, int xtype, int dtype,
                                void* stream) {
-  using namespace afis_screen;
-  if (NL <= 0 || Lt <= 0 || B <= 0 || Rt <= 0 || D <= 0
-      || (long long)NL * B > 0x7fffffffLL
-      || (long long)NL * Lt > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const size_t optin = smem_optin();
-  return afis_t::dispatch_pair(xtype, dtype, [&](auto xt, auto dt) {
-    using XT = typename decltype(xt)::type;
-    using DT = typename decltype(dt)::type;
-    const XT* xx = static_cast<const XT*>(x);
-    const DT* dd = static_cast<const DT*>(dec);
-    Walk w{B, Rt, kCT, (Rt + kCT - 1) / kCT, 1, 1, false};
-    if constexpr (std::is_same<XT, bf16>::value) {
-      LatRows<bf16> rows{xx, lsq, lvalid, out, NL, Lt, B, D, NL * Lt, 0,
-                         tau};
-      rows.plan_tc(w);
-      const CopyTC<DT, false> src{dd, a1, a2, D, D, 0,
-                                  copy_chunk(dd, D, D)};
-      if (D <= kDMax && tc_smem_bytes(src, rows) <= optin)
-        return launch_tc(src, rows, w, stream);
-    } else {
-      LatRows<float> rows{xx, lsq, lvalid, out, NL, Lt, B, D, NL * Lt, 0,
-                          tau};
-      plan_f32(rows, w);
-      const uintptr_t a = reinterpret_cast<uintptr_t>(dd);
-      const CopyF32<DT> src{dd, a1, a2, D,
-                            D % 4 == 0 && a % (4 * sizeof(DT)) == 0};
-      if (f32_smem_bytes(rows) <= optin)
-        return launch_f32(src, rows, w, stream);
-    }
-    return launch_tiles(xx, lsq, lvalid, afis_adc::DecCols<DT>{dd}, a1, a2,
-                        out, NL, Lt, B, Rt, D, tau, stream);
-  });
+  const Args a{x, lsq, lvalid, a1, a2, out, NL, Lt, B, Rt, D, tau, stream,
+               nullptr};
+  return screen(a, dec, xtype, dtype);
+}
+
+// The body a launch of these shapes takes: 0 wgmma, 1 the f32 body, 2 the
+// CUDA-core tiles; negative: the launch would be refused (-error).
+extern "C" int afis_adc_screen_body(int NL, int Lt, int B, int Rt, int D,
+                                    int xtype, int dtype) {
+  int body = -1;
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, NL, Lt,
+               B, Rt, D, 0.f, nullptr, &body};
+  const int e = screen(a, nullptr, xtype, dtype);
+  return e != 0 ? -e : body;
 }

@@ -7,13 +7,16 @@
 // (about one per SM) walk the work items (entry, row group):
 //
 //   - screen_tc_kernel<Src, Rows>: bf16 latent rows on the tensor cores,
-//     mma.sync.m16n8k16 bf16 x bf16 -> f32 (mma.cuh). A group is up to 512
+//     mma.sync.m16n8k16 bf16 x bf16 -> f32 (mma.cuh), for the row max
+//     (ArgRows) and the transposed experiment (TRows). A group is up to 512
 //     latent rows, 64 per warp, whose A fragments stay in registers; the
 //     entry's columns arrive in tiles of 128 stored [n][kLd] bf16 in shared
 //     memory and feed ldmatrix; each warp folds its rows' values from the
-//     accumulators (Rows::Fold: the maximum for a screen, the three largest
+//     accumulators (Rows::Fold: the maximum for TRows, the three largest
 //     with the columns of the first two for the row max), then a quad
 //     shuffle and a fold over the warps that split the columns.
+//   - the screens' bf16 latent rows (LatRows<bf16>) run the warp-specialized
+//     wgmma body of screen_wg.cuh instead.
 //   - screen_f32_kernel<Src, Rows>: f32 on the CUDA cores, each dot in
 //     index order with one rounding per product and per sum
 //     (--fmad=false), bit for bit the plain version. The entry's column
@@ -35,7 +38,7 @@
 //
 // Sources with the same tile and the same rows run the same instructions
 // in the same order, so the codes and predecoded screens give the same bits
-// on the same entry in bf16 (tensor cores) as in f32 (CUDA cores).
+// on the same entry in bf16 (wgmma) as in f32 (CUDA cores).
 #pragma once
 
 #include <limits.h>
@@ -232,22 +235,23 @@ __device__ __forceinline__ V slot_max(const V* part, int slot, int nslot,
 // group) become terms max(2 raw + ((6 - lsq) - tau), 0) lvalid, raw rounded
 // to XT, and the terms add into the per-latent sums in row order; a latent
 // whose last row is in the group writes its score, any other carries its
-// partial sum in lsum to the entry's next group. Every thread calls it;
-// term may alias the maxima.
-template <class XT, class P, class MaxOf>
+// partial sum in lsum to the entry's next group. Threads tid of nthr call
+// it, sync() synchronizing them; term may alias the maxima.
+template <class XT, class P, class MaxOf, class Sync>
 __device__ void finish_group(const MaxOf& max_of, float* term, float* lsum,
-                             int b, int g, const P& p) {
+                             int b, int g, const P& p, int tid, int nthr,
+                             const Sync& sync) {
   const int g0 = g * p.group, gn = min(p.group, p.rows - g0);
-  __syncthreads();
-  for (int r = threadIdx.x; r < gn; r += kThreads) {
+  sync();
+  for (int r = tid; r < gn; r += nthr) {
     const int row = g0 + r;
     const float raw = afis_t::round_to<XT>(max_of(r));
     const float t6 = (6.f - p.lsq[row]) - p.tau;
     term[r] = fmaxf(2.f * raw + t6, 0.f) * p.lvalid[row];
   }
-  __syncthreads();
+  sync();
   const int n_lo = g0 / p.Lt, n_hi = (g0 + gn - 1) / p.Lt;
-  for (int n = n_lo + threadIdx.x; n <= n_hi; n += kThreads) {
+  for (int n = n_lo + tid; n <= n_hi; n += nthr) {
     const int first = n * p.Lt, last = first + p.Lt;
     const int a = max(first, g0), e = min(last, g0 + gn);
     float s = a == first ? 0.f : lsum[n];
@@ -261,7 +265,8 @@ __device__ void finish_group(const MaxOf& max_of, float* term, float* lsum,
 
 // The screen's latent side x [rows = NL Lt, D] (XT f32 or bf16) and its
 // output out [NL, B]: v = (dot + a1) + a2 per column (a1 = -inf past Rt),
-// then finish_group.
+// then finish_group. bf16 rows run the wgmma body (screen_wg.cuh), f32
+// rows the f32 body below.
 template <class XT>
 struct LatRows {
   const XT* x;
@@ -270,53 +275,10 @@ struct LatRows {
   float* out;
   int NL, Lt, B, D, rows, group;
   float tau;
-  float* term;     // [kRowsTC] in shared memory (tensor-core body)
   float* lsum;     // [NL]
   float* rmax;     // [group] running row maxima (f32 body)
 
-  using Fold = MaxFold;
-  static constexpr bool kKeepA = true;   // fragments kept across entries
-
-  // Tensor-core groups: whole latents where a latent fits in 512 rows (a
-  // block keeps its group; no partial sums cross blocks), else 512 rows
-  // walked in order by every block.
-  void plan_tc(Walk& w) {
-    w.fixed = Lt <= kRowsTC;
-    group = w.fixed ? min(kRowsTC / Lt * Lt, rows) : kRowsTC;
-    w.ngroups = (rows + group - 1) / group;
-  }
-  size_t smem_bytes() const { return padded(kRowsTC * 4) + padded(NL * 4); }
-  __device__ void init(unsigned char*& sm) {
-    term = reinterpret_cast<float*>(carve(sm, kRowsTC * 4));
-    lsum = reinterpret_cast<float*>(carve(sm, NL * 4));
-  }
   __device__ int group_rows(int g) const { return min(group, rows - g * group); }
-
-  struct RowState {};
-  // The A fragments of rows r0 .. r0 + 63 (zero past rows and past D).
-  __device__ void load(uint32_t a[4][kMaxKSteps][4], RowState&, int r0) const {
-    const auto one = [](int) { return 1.f; };
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int ks = 0; ks < kMaxKSteps; ++ks)
-        load_a(a[m][ks], x, rows, D, r0 + 16 * m, ks, one);
-  }
-  __device__ float value(float c, float2 u, const RowState&, int, int,
-                         bool) const {
-    return (c + u.x) + u.y;
-  }
-  __device__ void finish(const float* part, int slot, int nslot,
-                         Step st) const {
-    finish_group<XT>([&](int r) { return slot_max(part, slot, nslot, r); },
-                     term, lsum, st.b, st.g, *this);
-  }
-  template <class Src>
-  __device__ void finish(const MaxFold& f, float* part, const WarpSplit& sp,
-                         Step st, const Src&, const Walk&) const {
-    f.to_part(part, sp);
-    finish(part, sp.wr * kWarpRows, sp.wc, st);
-  }
 
   // f32 body: v = (dot + a1) + a2 folded into rmax, then finish_group.
   size_t f32_rows_bytes() const {
@@ -350,7 +312,8 @@ struct LatRows {
   }
   __device__ void finish_f32(Step st) const {
     finish_group<float>([&](int r) { return rmax[r]; }, rmax, lsum, st.b,
-                        st.g, *this);
+                        st.g, *this, threadIdx.x, kThreads,
+                        [] { __syncthreads(); });
   }
 };
 
@@ -934,7 +897,8 @@ __global__ void __launch_bounds__(kThreads, 1) screen_tc_kernel(
 // so two tiles load while one runs on the tensor cores. The first Dk
 // features of a column go to the tile; its epilogue values are, with
 // kTail, features Dk and Dk + 1 (TRows; kept as a bf16 pair), else a1 / a2
-// [B, Rt] (LatRows; a1 = -inf past Rt). A bf16 stage is the tile itself;
+// [B, Rt] (ArgRows: rsq and rvalid; a1 = -inf past Rt). A bf16 stage is
+// the tile itself;
 // an int8 stage is converted into one of two bf16 tiles once it has
 // arrived.
 template <class T, bool kTail>
@@ -1302,7 +1266,8 @@ size_t tc_smem_bytes(const Src& src, const Rows& rows) {
 // beside the other groups' (at least one, at most one per E entries);
 // else one block per entry up to what the card holds at once.
 template <class Kernel>
-int plan_grid(Kernel kernel, size_t smem, const Walk& w, int* grid) {
+int plan_grid(Kernel kernel, size_t smem, const Walk& w, int* grid,
+              int threads = kThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -1313,7 +1278,7 @@ int plan_grid(Kernel kernel, size_t smem, const Walk& w, int* grid) {
                              (int)smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      threads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
   const long long cap = (long long)sms * per_sm;

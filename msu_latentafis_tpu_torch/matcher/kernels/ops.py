@@ -19,10 +19,10 @@ and recomputes them in index order. These keep the reordered sums:
 
 - the minutiae screen with a bf16 latent side, held to ``KERNEL_TOL``;
 - the predecoded ADC screen with a bf16 latent side (bf16 or int8
-  gallery) and the codes ADC screen with a bf16 codebook, one body
-  (``csrc/screen_body.cuh``): their row maxima round to bf16 and may land
-  one bf16 ulp apart, held to ``screen_slack``; on the same entry the two
-  give the same bits;
+  gallery) and the codes ADC screen with a bf16 codebook, one body on the
+  warpgroup tensor cores (``wgmma``, ``csrc/screen_wg.cuh``): their row
+  maxima round to bf16 and may land one bf16 ulp apart, held to
+  ``screen_slack``; on the same entry the two give the same bits;
 - the experiment's transposed bf16 screen, held to ``screen_t_tol``;
 - the normalized minutiae screen with a bf16 latent side, held to
   ``minu_norm_interval``: its normalization divides by sums that may be
@@ -106,6 +106,9 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)
 TC_SUM_ULPS = 4.0 * 2.0 ** -24
 # what the row max's launches ran on (``adc_rowmax_body``)
 ROWMAX_BODIES = ("tensor cores", "f32 body", "CUDA-core tiles")
+# what the ADC screens' launches ran on (``afis_adc_screen_body``,
+# ``afis_adc_screen_codes_body``; the codes screen has no tiles)
+SCREEN_BODIES = ("wgmma", "f32 body", "CUDA-core tiles")
 # what the transposed int8 screen's launches ran on
 # (``afis_screen_t_int8_plan``: D <= 96 on the tensor cores)
 SCREEN_T_INT8_PLANS = ("tensor cores", "dp4a")
@@ -169,6 +172,8 @@ def reset_launch_counts() -> None:
         globals()[k].launches = 0
     for k in ("adc_rowmax", "adc_rowmax_codes"):
         globals()[k].bodies = dict.fromkeys(ROWMAX_BODIES, 0)
+    for k in ("adc_screen", "adc_screen_codes"):
+        globals()[k].bodies = dict.fromkeys(SCREEN_BODIES, 0)
     screen_t_int8.plans = dict.fromkeys(SCREEN_T_INT8_PLANS, 0)
 
 
@@ -315,14 +320,15 @@ def rowmax_threshold(t1: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=256)
-def _rowmax_body(name: str, device: int, *shape) -> str:
-    """The body a row max launch of these sizes and types takes on the
-    card ``device`` (``afis_adc_rowmax_body``; fixed per shape)."""
+def _body(planner: str, bodies: tuple, name: str, device: int, *shape) -> str:
+    """The body a launch of ``name`` with these sizes and types takes on the
+    card ``device``: ``bodies[k]`` for the k the library's planner returns
+    (fixed per shape)."""
     with torch.cuda.device(device):
-        k = _build.load().afis_adc_rowmax_body(*shape)
+        k = getattr(_build.load(), planner)(*shape)
     if k < 0:
         _build.check(-k, name)
-    return ROWMAX_BODIES[k]
+    return bodies[k]
 
 
 def rowmax_counts(reset: bool = False) -> dict:
@@ -368,8 +374,8 @@ def adc_rowmax(x: torch.Tensor, lsq: torch.Tensor, dec: torch.Tensor,
     bestj = torch.empty((NL, B, Lt), dtype=torch.int32, device=dev)
     lib = _build.load()
     xtype, dtype = DTYPE_CODE[x.dtype], DTYPE_CODE[dec.dtype]
-    body = _rowmax_body("adc_rowmax", dev.index, NL, Lt, B, Rt, D, xtype,
-                        dtype, 0, 0)
+    body = _body("afis_adc_rowmax_body", ROWMAX_BODIES, "adc_rowmax",
+                 dev.index, NL, Lt, B, Rt, D, xtype, dtype, 0, 0)
     norms = rowmax_operand_norms(x, dec) if body == ROWMAX_BODIES[0] \
         else (None, None)
     err = lib.afis_adc_rowmax(
@@ -412,8 +418,8 @@ def adc_rowmax_codes(x: torch.Tensor, lsq: torch.Tensor, codes: torch.Tensor,
     bestj = torch.empty((NL, B, Lt), dtype=torch.int32, device=dev)
     lib = _build.load()
     xtype = DTYPE_CODE[x.dtype]
-    body = _rowmax_body("adc_rowmax_codes", dev.index, NL, Lt, B, Rt, D,
-                        xtype, xtype, S, C)
+    body = _body("afis_adc_rowmax_body", ROWMAX_BODIES, "adc_rowmax_codes",
+                 dev.index, NL, Lt, B, Rt, D, xtype, xtype, S, C)
     norms = rowmax_operand_norms(x, codebook=codebook, B=B) \
         if body == ROWMAX_BODIES[0] else (None, None)
     err = lib.afis_adc_rowmax_codes(
@@ -538,9 +544,10 @@ def adc_screen(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
     scale of the -rsq / 2 row per group of that many entries.
 
     On the card f32 latents run on the CUDA cores, bit for bit the plain
-    version; bf16 latents with D <= 96 on the tensor cores, within
-    ``screen_slack`` of it (bf16 with D > 96 on the CUDA cores, bit for
-    bit).
+    version; bf16 latents with D <= 96 on the warpgroup tensor cores
+    (``wgmma``), within ``screen_slack`` of it (bf16 with D > 96 on the
+    CUDA cores, bit for bit); ``adc_screen.bodies`` counts the launches of
+    each (``SCREEN_BODIES``).
     """
     NL, Lt, D, B, Rt, dev = _adc_screen_args(x, lsq, lvalid, rsq, rvalid)
     _check_pair("x", x, "dec", dec)
@@ -550,16 +557,20 @@ def adc_screen(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
     a1, a2 = screen_aug(rsq, rvalid, x.dtype, dec.dtype, block)
     out = torch.empty((NL, B), dtype=torch.float32, device=dev)
     lib = _build.load()
+    xtype, dtype = DTYPE_CODE[x.dtype], DTYPE_CODE[dec.dtype]
+    body = _body("afis_adc_screen_body", SCREEN_BODIES, "adc_screen",
+                 dev.index, NL, Lt, B, Rt, D, xtype, dtype)
     err = lib.afis_adc_screen(
         *(t.data_ptr() for t in (x, lsq, lvalid, dec, a1, a2, out)),
-        NL, Lt, B, Rt, D, float(tau), DTYPE_CODE[x.dtype],
-        DTYPE_CODE[dec.dtype], _stream(dev))
+        NL, Lt, B, Rt, D, float(tau), xtype, dtype, _stream(dev))
     _build.check(err, "adc_screen")
     adc_screen.launches += 1
+    adc_screen.bodies[body] += 1
     return out
 
 
 adc_screen.launches = 0
+adc_screen.bodies = dict.fromkeys(SCREEN_BODIES, 0)
 
 
 def adc_screen_codes_plain(x, lsq, lvalid, codes, codebook, rsq, rvalid,
@@ -574,8 +585,10 @@ def adc_screen_codes(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
                      tau: float = 0.0) -> torch.Tensor:
     """``adc_screen`` over uint8 PQ codes [B, Rt, S] and the codebook
     [S, C, d] in x's type: in f32 bit for bit ``adc_screen`` on the decoded
-    gallery; with a bf16 codebook (S * d <= 96) the card's tensor cores sum
-    the dots in another order, within ``screen_slack`` of it."""
+    gallery; with a bf16 codebook (S * d <= 96) the card's warpgroup tensor
+    cores sum the dots in another order, within ``screen_slack`` of it, and
+    give ``adc_screen``'s bits on the decoded gallery
+    (``adc_screen_codes.bodies`` counts the launches of each body)."""
     NL, Lt, D, B, Rt, dev = _adc_screen_args(x, lsq, lvalid, rsq, rvalid)
     S, C, sd = _check_codes(codes, codebook, B, Rt, D, x.dtype, dev)
     if not _is_cuda(dev):
@@ -584,17 +597,22 @@ def adc_screen_codes(x: torch.Tensor, lsq: torch.Tensor, lvalid: torch.Tensor,
     a1, a2 = screen_aug(rsq, rvalid, x.dtype, codebook.dtype)
     out = torch.empty((NL, B), dtype=torch.float32, device=dev)
     lib = _build.load()
+    xtype = DTYPE_CODE[x.dtype]
+    body = _body("afis_adc_screen_codes_body", SCREEN_BODIES,
+                 "adc_screen_codes", dev.index, NL, Lt, B, Rt, S, C, sd,
+                 xtype)
     err = lib.afis_adc_screen_codes(
         *(t.data_ptr() for t in (x, lsq, lvalid, codes, codebook, a1, a2,
                                  out)),
-        NL, Lt, B, Rt, S, C, sd, float(tau), DTYPE_CODE[x.dtype],
-        _stream(dev))
+        NL, Lt, B, Rt, S, C, sd, float(tau), xtype, _stream(dev))
     _build.check(err, "adc_screen_codes")
     adc_screen_codes.launches += 1
+    adc_screen_codes.bodies[body] += 1
     return out
 
 
 adc_screen_codes.launches = 0
+adc_screen_codes.bodies = dict.fromkeys(SCREEN_BODIES, 0)
 
 
 def minu_screen_plain(ldes, lvalid, rdes, rvalid):

@@ -267,6 +267,35 @@ def test_wrappers_validate_inputs():
                        torch.zeros((2, 8), device="meta"))
 
 
+def test_screen_bodies_count_card_launches_only(rng):
+    """ops.SCREEN_BODIES names the ADC screens' bodies (the warpgroup tensor
+    cores first); reset_launch_counts zeroes adc_screen.bodies and
+    adc_screen_codes.bodies; on the CPU both wrappers return their plain
+    versions' bits and count no launch and no body."""
+    assert ops.SCREEN_BODIES == ("wgmma", "f32 body", "CUDA-core tiles")
+    ops.adc_screen.bodies["wgmma"] += 1
+    ops.adc_screen_codes.bodies["f32 body"] += 2
+    ops.reset_launch_counts()
+    for fn in (ops.adc_screen, ops.adc_screen_codes):
+        assert fn.bodies == dict.fromkeys(ops.SCREEN_BODIES, 0)
+    NL, Lt, B, Rt, S, C, sd = 2, 5, 3, 7, 2, 4, 6
+    x = T(rng.standard_normal((NL, Lt, S * sd)), torch.bfloat16)
+    cb = T(rng.standard_normal((S, C, sd)), torch.bfloat16)
+    codes = T(rng.integers(0, C, (B, Rt, S)), torch.uint8)
+    dec8 = T(rng.integers(-127, 128, (B, Rt, S * sd)), torch.int8)
+    side = dict(lsq=x.float().pow(2).sum(-1), lvalid=torch.ones(NL, Lt),
+                rsq=T(rng.uniform(0, 4, (B, Rt))),
+                rvalid=T(rng.uniform(size=(B, Rt)) > 0.2))
+    assert torch.equal(ops.adc_screen(x, dec=dec8, block=B, **side),
+                       ops.adc_screen_plain(x, dec=dec8, block=B, **side))
+    assert torch.equal(
+        ops.adc_screen_codes(x, codes=codes, codebook=cb, **side),
+        ops.adc_screen_codes_plain(x, codes=codes, codebook=cb, **side))
+    for fn in (ops.adc_screen, ops.adc_screen_codes):
+        assert fn.launches == 0
+        assert fn.bodies == dict.fromkeys(ops.SCREEN_BODIES, 0)
+
+
 def test_minutiae_match_single_matches_jax(rng):
     """One latent template vs one rolled template, exact top-K (row_cap =
     R) against the JAX XLA path (minutiae_similarity + top_k + filter)."""
