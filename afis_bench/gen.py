@@ -12,6 +12,13 @@ codebook copies ``random_codebook``. Everything is raw: f32 descriptors,
 uint8 codes, coordinates and counts, from which the program derives its
 stored layout and the reference derives its own.
 
+A latent holds every slot of its T minutiae templates (Lm) and of its
+texture template (Lt) unless the configuration states a law of latent
+sizes, ``latent.counts`` (``count_law``): then each template's minutiae
+count and the texture count are drawn from it, from a stream of their own,
+and the slots at or beyond a count are zero. The draws of every slot are
+those of the full latent either way, so a law changes no other stream.
+
 Each gallery chunk has a generator of its own, seeded from (seed, chunk),
 so that the reference can draw any chunk again after the program's
 gallery is freed. This module imports nothing of the program.
@@ -28,6 +35,7 @@ DES_NORM = 1.73          # post-reduction descriptor norm (descriptor_DR.py:152)
 MATE_DES_NOISE = 0.25    # a mate's minutiae descriptors: the latent's plus this
 MATE_XY_NOISE = 2.0      # a mate's minutiae coordinates: the latent's plus this
 CHUNK = 2048             # gallery entries a generator draws at once
+LAWS = ("loguniform",)
 
 _MASK64 = (1 << 64) - 1
 
@@ -69,13 +77,59 @@ def pq_encode(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     return dist.argmin(dim=2).to(torch.uint8)
 
 
+def count_law(lat: dict):
+    """The law of latent sizes that ``lat`` (a configuration's
+    ``latent``) states: None, or ``(minu (lo, hi), tex (lo, hi))``, each
+    1 <= lo <= hi <= Lm (Lt). Raises on any other law or bounds."""
+    law = lat.get("counts")
+    if law is None:
+        return None
+    if law.get("law") not in LAWS:
+        raise ValueError(f"latent counts: law {law.get('law')!r} is not one "
+                         f"of {LAWS}")
+    out = []
+    for key, cap in (("minu", int(lat["Lm"])), ("tex", int(lat["Lt"]))):
+        lo, hi = (int(v) for v in law[key])
+        if not 1 <= lo <= hi <= cap:
+            raise ValueError(f"latent counts: {key} [{lo}, {hi}] is not "
+                             f"within [1, {cap}]")
+        out.append((lo, hi))
+    return tuple(out)
+
+
+def loguniform_counts(rng: np.random.Generator, shape, lo: int,
+                      hi: int) -> np.ndarray:
+    """Integers in [lo, hi], log-uniform: floor(exp(u)) for u uniform on
+    [log lo, log(hi + 1)), so that P(n) is proportional to log((n+1)/n)."""
+    u = rng.random(shape)
+    n = np.floor(np.exp(np.log(lo) + u * (np.log(hi + 1) - np.log(lo))))
+    return np.clip(n, lo, hi).astype(np.int32)
+
+
+def latent_counts(lat: dict, pool: int, seed: int):
+    """(minu_n [pool, T], tex_n [pool]) int32 of the pool's latents: the
+    configuration's law drawn from ``derive(seed, "latent_counts")``
+    (the T minutiae counts of every latent first, then the texture
+    counts), or every latent full."""
+    T, Lm, Lt = (int(lat[k]) for k in ("T", "Lm", "Lt"))
+    law = count_law(lat)
+    if law is None:
+        return (np.full((pool, T), Lm, np.int32),
+                np.full((pool,), Lt, np.int32))
+    rng = np.random.default_rng(derive(seed, "latent_counts"))
+    (mlo, mhi), (tlo, thi) = law
+    return (loguniform_counts(rng, (pool, T), mlo, mhi),
+            loguniform_counts(rng, (pool,), tlo, thi))
+
+
 class Draws:
     """The raw inputs of one run of one cell, drawn from ``seed``.
 
     ``config`` holds the gallery and latent sizes (``gallery``, ``Rm``,
-    ``Rt``, ``D``, ``pq``, ``latent``) and ``modes.block``; ``pool`` is
-    the number of distinct latents. Gallery rows are padded up to a block
-    multiple; padding rows have zero counts.
+    ``Rt``, ``D``, ``pq``, ``latent``, with ``latent.counts`` where a law
+    sizes the latents) and ``modes.block``; ``pool`` is the number of
+    distinct latents. Gallery rows are padded up to a block multiple;
+    padding rows have zero counts.
     """
 
     def __init__(self, config: dict, pool: int, seed: int, device):
@@ -92,6 +146,7 @@ class Draws:
             raise ValueError("pq subs x sub_dim must equal D")
         lat = config["latent"]
         self.T, self.Lm, self.Lt = (int(lat[k]) for k in ("T", "Lm", "Lt"))
+        self.lat_config = lat
         self.pool = int(pool)
         if self.pool > self.G:
             raise ValueError("more latents than gallery entries")
@@ -115,46 +170,62 @@ class Draws:
         return d / (d.norm(dim=-1, keepdim=True) + 1e-7) * DES_NORM
 
     def _latents(self) -> Dict[str, torch.Tensor]:
-        """The pool: T minutiae templates of Lm minutiae and one texture
-        template of Lt virtual minutiae each, every slot valid."""
+        """The pool: T minutiae templates of Lm slots and one texture
+        template of Lt slots each; every slot valid, or under a law of
+        sizes the first ``minu_n`` / ``tex_n`` and the rest zero."""
         g = self._gen("latents")
         P, T, Lm, Lt, D = self.pool, self.T, self.Lm, self.Lt, self.D
-        return dict(
+        minu_n, tex_n = latent_counts(self.lat_config, P, self.seed)
+        lat = dict(
             minu_des=self._unit(g, (P, T, Lm, D)),
             minu_xy=self._uniform(g, (P, T, Lm, 2), 24, 488),
             minu_ori=self._uniform(g, (P, T, Lm), -math.pi, math.pi),
-            minu_n=torch.full((P, T), Lm, dtype=torch.int32,
-                              device=self.device),
+            minu_n=torch.as_tensor(minu_n, device=self.device),
             tex_des=self._unit(g, (P, Lt, D)),
             tex_xy=torch.floor(self._uniform(g, (P, Lt, 2), 0, 30)),
             tex_ori=self._uniform(g, (P, Lt), -math.pi, math.pi),
-            tex_n=torch.full((P,), Lt, dtype=torch.int32, device=self.device))
+            tex_n=torch.as_tensor(tex_n, device=self.device))
+        if count_law(self.lat_config) is None:
+            # every slot valid: nothing to zero, and no device work that a
+            # configuration without a law did not do before (the caching
+            # allocator's peak depends on the order of allocations)
+            return lat
+        return zero_beyond_counts(lat)
 
     def _mates(self):
         """Latent i's mate, planted at a seeded position: its first
-        min(Rm, Lm) minutiae are noisy copies of the latent's first
-        template, its first min(Rt, Lt) virtual minutiae carry the latent's
-        coordinates and the PQ codes of its texture descriptors; the rest
-        is drawn as any entry's."""
+        min(Rm, n_0) minutiae are noisy copies of the latent's first
+        template (n_0 that template's count), its first min(Rt, tex_n)
+        virtual minutiae carry the latent's coordinates and the PQ codes of
+        its texture descriptors; the rest is drawn as any entry's. The
+        noise is drawn for min(Rm, Lm) slots whatever the counts, so that
+        the stream is the full latent's."""
         g = self._gen("mates")
-        P = self.pool
-        pos = torch.randperm(self.G, generator=g, device=self.device)[:P]
+        P, dev = self.pool, self.device
+        pos = torch.randperm(self.G, generator=g, device=dev)[:P]
         rows = self._entries(g, P, full=True)
         lat = self.latents
+
+        def plant(key, on, value):
+            old = rows[key][:, :on.shape[1]]
+            on = on.reshape(on.shape + (1,) * (value.dim() - 2))
+            rows[key][:, :on.shape[1]] = torch.where(on, value, old)
         k = min(self.Rm, self.Lm)
-        rows["minu_xy"][:, :k] = lat["minu_xy"][:, 0, :k] + MATE_XY_NOISE \
-            * torch.randn((P, k, 2), generator=g, device=self.device)
-        rows["minu_ori"][:, :k] = lat["minu_ori"][:, 0, :k]
+        on = torch.arange(k, device=dev)[None] < lat["minu_n"][:, :1]
+        plant("minu_xy", on, lat["minu_xy"][:, 0, :k] + MATE_XY_NOISE
+              * torch.randn((P, k, 2), generator=g, device=dev))
+        plant("minu_ori", on, lat["minu_ori"][:, 0, :k])
         d = lat["minu_des"][:, 0, :k] + MATE_DES_NOISE * torch.randn(
-            (P, k, self.D), generator=g, device=self.device)
-        rows["minu_des"][:, :k] = d / (d.norm(dim=-1, keepdim=True)
-                                       + 1e-7) * DES_NORM
+            (P, k, self.D), generator=g, device=dev)
+        plant("minu_des", on, d / (d.norm(dim=-1, keepdim=True) + 1e-7)
+              * DES_NORM)
         k = min(self.Rt, self.Lt)
-        rows["tex_xy"][:, :k] = lat["tex_xy"][:, :k]
-        rows["tex_ori"][:, :k] = lat["tex_ori"][:, :k]
-        rows["tex_codes"][:, :k] = pq_encode(
+        on = torch.arange(k, device=dev)[None] < lat["tex_n"][:, None]
+        plant("tex_xy", on, lat["tex_xy"][:, :k])
+        plant("tex_ori", on, lat["tex_ori"][:, :k])
+        plant("tex_codes", on, pq_encode(
             lat["tex_des"][:, :k].reshape(-1, self.D),
-            self.codebook_t).reshape(P, k, self.S)
+            self.codebook_t).reshape(P, k, self.S))
         return pos, rows
 
     def _entries(self, g, n: int, full: bool = False) -> Dict[str, torch.Tensor]:
@@ -222,15 +293,18 @@ class Draws:
 
 
 def zero_beyond_counts(rows: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Zero every minutiae / texture slot at or beyond the entry's count."""
-    dev = rows["minu_n"].device
-    mm = torch.arange(rows["minu_des"].shape[1], device=dev)[None] \
-        < rows["minu_n"][:, None]
-    tm = torch.arange(rows["tex_codes"].shape[1], device=dev)[None] \
-        < rows["tex_n"][:, None]
-    for k in ("minu_des", "minu_xy", "minu_ori"):
-        rows[k] = rows[k] * mm.reshape(mm.shape + (1,) * (rows[k].dim() - 2))
-    for k in ("tex_xy", "tex_ori"):
-        rows[k] = rows[k] * tm.reshape(tm.shape + (1,) * (rows[k].dim() - 2))
-    rows["tex_codes"] = rows["tex_codes"] * tm[:, :, None].to(torch.uint8)
+    """Zero every minutiae / texture slot at or beyond its count: an
+    entry's (``minu_n`` [N], ``tex_n`` [N]), or each latent template's
+    (``minu_n`` [P, T]) and each latent's texture (``tex_n`` [P])."""
+    for key, fields in (("minu_n", ("minu_des", "minu_xy", "minu_ori")),
+                        ("tex_n", ("tex_des", "tex_codes", "tex_xy",
+                                   "tex_ori"))):
+        n = rows[key]
+        for k in fields:
+            if k not in rows:
+                continue
+            v = rows[k]
+            on = torch.arange(v.shape[n.dim()], device=n.device) < n[..., None]
+            rows[k] = v * on.reshape(on.shape + (1,) * (v.dim() - on.dim())
+                                     ).to(v.dtype)
     return rows

@@ -90,19 +90,44 @@ class Bench:
 
 class RunView:
     """What a metric reader reads: the window, the set-up, the memory, the
-    trace (``trace.Trace`` or None) and the cell's files."""
+    trace (``trace.Trace`` or None), the cell's files and the sizes of the
+    latents each window batch carried (``batch_latents``: a list of
+    ``work.LatentSize`` a batch; None where a view was built without
+    them)."""
+
+    batch_latents = None
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
+
+    def window_latents(self) -> list:
+        """``batch_latents``, or where the view has none, full latents
+        (None) for each batch of the window."""
+        if self.batch_latents is None:
+            return [None] * len(self.window.batches)
+        return self.batch_latents
 
 
 # ---------------------------------------------------------------------------
 # the system under test
 # ---------------------------------------------------------------------------
 
+def packed_sizes(minu_n, tex_n) -> tuple:
+    """The axes the program's packer (``templates/packing.pack_latent``)
+    gives a latent of these counts: minutiae ``_round_up(max count, 8)``
+    (at least 8), texture ``_round_up(tex_n, 8)`` (8 where there is
+    none)."""
+    def up8(n: int) -> int:
+        return -(-max(int(n), 1) // 8) * 8
+    return up8(max(int(n) for n in minu_n)), up8(tex_n)
+
+
 class Program:
     """The port, set up for one cell: its engine, the gallery stored from
-    the draws by the engine's own steps, and the pool as packed latents."""
+    the draws by the engine's own steps, and the pool as packed latents,
+    each at the sizes the program's packer gives it (``packed_sizes``);
+    a batch is handed over as it comes, latents of unequal sizes
+    included."""
 
     def __init__(self, config: dict, mix: dict, draws, device):
         import torch
@@ -167,12 +192,16 @@ class Program:
             names=[str(i) for i in range(draws.G)], n_real=draws.G,
             minu_scale=minu_scale, **t)
         lat = {k: v.cpu().numpy() for k, v in draws.latents.items()}
-        self.latents = [PackedLatent(
-            minu_des=lat["minu_des"][i], minu_xy=lat["minu_xy"][i],
-            minu_ori=lat["minu_ori"][i], minu_n=lat["minu_n"][i],
-            tex_des=lat["tex_des"][i], tex_xy=lat["tex_xy"][i],
-            tex_ori=lat["tex_ori"][i], tex_n=lat["tex_n"][i],
-            name=f"latent{i}") for i in range(draws.pool)]
+        self.latents = []
+        for i in range(draws.pool):
+            lm, lt = packed_sizes(lat["minu_n"][i], lat["tex_n"][i])
+            a = {k: np.ascontiguousarray(lat[k][i][:, :lm]) for k in
+                 ("minu_des", "minu_xy", "minu_ori")}
+            a.update({k: np.ascontiguousarray(lat[k][i][:lt]) for k in
+                      ("tex_des", "tex_xy", "tex_ori")})
+            self.latents.append(PackedLatent(
+                minu_n=lat["minu_n"][i], tex_n=lat["tex_n"][i],
+                name=f"latent{i}", **a))
 
     def gallery_bytes(self) -> int:
         g = self.gallery
@@ -241,6 +270,7 @@ def run_cell(bench: Bench, cell: str, seed: int, seconds: float,
     from .gen import Draws
     from .trace import Trace, read_profile
     from .window import ClosedLoop
+    from .work import latent_sizes
 
     t0 = clock() if t0 is None else t0
     w = bench.cell(cell)
@@ -258,6 +288,8 @@ def run_cell(bench: Bench, cell: str, seed: int, seconds: float,
     prog = program(config, mix, draws, device)
     gallery_bytes, gallery_entries = prog.gallery_bytes(), draws.Gp
     batch_of = batches(draws.pool, int(mix["batch"]), seed)
+    sizes = latent_sizes(draws.latents["minu_n"].cpu().numpy(),
+                         draws.latents["tex_n"].cpu().numpy())
 
     def sync():
         if cuda:
@@ -274,9 +306,11 @@ def run_cell(bench: Bench, cell: str, seed: int, seconds: float,
 
     answers: Dict[int, dict] = {}
     attempted = [0]
+    carried: List[List[int]] = []
 
     def submit(b: int) -> int:
-        got = prog.search(batch_of(warm + b))
+        carried.append(batch_of(warm + b))
+        got = prog.search(carried[-1])
         attempted[0] += int(mix["batch"])
         answers.update(got)
         return len(got)
@@ -300,6 +334,7 @@ def run_cell(bench: Bench, cell: str, seed: int, seconds: float,
         window=loop, setup_s=setup_s, window_peak_bytes=window_peak,
         gallery_bytes=gallery_bytes, gallery_entries=gallery_entries,
         config=config, mix=mix,
+        batch_latents=[[sizes[i] for i in b] for b in carried],
         trace=Trace(read_profile(prof), loop.window_s) if prof else None)
     del prof, prog
     gc.collect()

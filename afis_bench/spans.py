@@ -35,7 +35,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from afis_bench.kernels import device_seconds
-from afis_bench.work import PEAK_F32, Shapes, bound_s
+from afis_bench.work import PEAK_F32, Shapes, window_least_s
 
 # the power iterations of the filter's first stage in each counted kernel
 # (engine.block_args) and the operations per unit of its counts
@@ -199,17 +199,17 @@ def filter_ops(counts: dict) -> float:
 
 def exact_roofline_counted(run, counts: Optional[dict] = None
                            ) -> Optional[float]:
-    """``exact_roofline``'s least time plus the filter's counted operations
-    at the f32 peak, over the exact group's device time, in per cent."""
+    """``exact_roofline``'s least time (each window batch's, from the
+    latents it carried) plus the filter's counted operations at the f32
+    peak, over the exact group's device time, in per cent."""
     if run.trace is None:
         return None
     counts = program_filter_counts() if counts is None else counts
     if not counts or not any(c["sets"] for c in counts.values()):
         return None
     s = device_seconds(run.trace, "exact")
-    work = Shapes(run.config, run.mix).exact_batch()
-    if s <= 0 or not work:
+    least = window_least_s(Shapes(run.config, run.mix), run.window_latents(),
+                           "exact")
+    if s <= 0 or not least:
         return None
-    least = bound_s(work) * len(run.window.batches) + filter_ops(counts) \
-        / PEAK_F32
-    return 100.0 * least / s
+    return 100.0 * (least + filter_ops(counts) / PEAK_F32) / s
